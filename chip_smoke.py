@@ -6,7 +6,7 @@
 Phases, each printed with its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run;
-2. build: ``nvcc`` compiles ``ofot_tpu_torch/csrc/*.cu`` into
+2. build: one ``nvcc`` call compiles ``ofot_tpu_torch/csrc/*.cu`` into
    ``ofot_tpu_torch/_build/`` (plain C interface, loaded with ctypes);
 3. kernel vs plain: the fused stepB/stepC/criterion kernel against its
    plain torch version on the same CUDA tensors, at (3|4, 16, 240, 320),
@@ -19,7 +19,22 @@ Phases, each printed with its elapsed seconds:
 5. card vs CPU: 20 fixed ALG2 iterations at full size on the card (kernel)
    and on the CPU (plain version), crit trajectory and phi compared;
 6. profile: a torch.profiler window of ALG2 iterations on the card (kernel
-   time by name, the device's busy share) and the CLI's solve again, warm.
+   time by name, the device's busy share) and the CLI's solve again, warm;
+7. kernels vs plain: the spectral stepA kernel (dct_solve), the standalone
+   projection and the stepA operator (both entry points) against their
+   plain torch versions, repeat launches bitwise-equal, with CUDA-event
+   timings beside each kernel's bound and, where one PyTorch call computes
+   the same function, that call's time;
+8. paths: the CLI at 320x240 on the same pair, each path with every launch
+   count set to 0 just before it and read just after: FOTO with
+   ``--stepA-solver=dct-fused``, FOTO with ``cg-pallas`` (``--max-it`` cut),
+   WFR at WFR_ARGS with ``auto`` (the fused kernel at 4 components) and with
+   ``dct-fused``.  Each must launch its kernel once per ALG2 iteration (or
+   CG step), end without NaN and reduce IE below the identity warp's;
+9. WFR card vs CPU: 20 fixed WFR iterations, as phase 5;
+10. new-path profile: torch.profiler windows of the phase-8 paths (device
+   busy share, kernel time by name) and warm solves, WFR ``auto`` and
+   ``dct`` side by side.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -41,8 +56,12 @@ import torch
 
 import ofot_tpu_torch.ops.kernels.fused_pointwise as fp
 from ofot_tpu_torch.cli import main as cli
+from ofot_tpu_torch.ops import kernels
 from ofot_tpu_torch.ops.kernels import _build
-from ofot_tpu_torch.solvers import foto
+from ofot_tpu_torch.ops.kernels import cg_operator as cgk
+from ofot_tpu_torch.ops.kernels import dct_solve as ds
+from ofot_tpu_torch.ops.kernels import projection as pk
+from ofot_tpu_torch.solvers import foto, wfr
 from ofot_tpu_torch.utils import flo, image, metrics
 
 SEED = 0
@@ -50,16 +69,31 @@ SHAPE = (16, 240, 320)                     # (Nt, Ny, Nx) of the sweep
 FOTO_ARGS = ["--algo=foto", "--r=1", "--convergence-tol=0.01",
              "--reg-epsilon=1e-2", "--Nt=16", "--max-it=200",
              "--admm-alpha=1.7"]           # ofot_tpu/cli/pipeline.py:61-63
+WFR_ARGS = ["--algo=WFR", "--r=1", "--convergence-tol=0.01",
+            "--reg-epsilon=1e-2", "--Nt=16", "--max-it=200",
+            "--wfr-delta=2.5", "--admm-alpha=1.7"]  # pipeline.py:58-60
 ADMM_ALPHA = 1.7
+WFR_DELTA = 2.5
 CARD_VS_CPU_ITERATIONS = 20
 PROFILE_ITERATIONS = 10
+# The cg-pallas path runs hundreds of CG steps per ALG2 iteration, and the
+# port's CG syncs once per step: FOTO_ARGS' max-it is cut to this many
+# ALG2 iterations so that the path stays under about 20 s (234 CG steps
+# and 80 ms per ALG2 iteration on an H100 SXM at 700 W, 20-iteration run).
+CG_PALLAS_MAX_IT = 100
 
 # Kernel vs plain version, float32 on the card.  The kernel takes
 # cbrtf/acosf where the plain version takes the Pallas kernel's exp/log and
 # Newton forms, and nvcc fuses multiply-adds: elementwise agreement to a
 # few hundred ulps of O(1) values; the criterion sums (1.2M float32
-# products, summed in another order) to 1e-5 relative.
+# products, summed in another order) to 1e-5 relative.  The standalone
+# projection is held to the same elementwise bound.
 KERNEL_ATOL, KERNEL_RTOL, SUM_RTOL = 2e-5, 1e-5, 1e-5
+# The spectral solve: relative to max|phi|, tests/test_pallas.py's bound for
+# the Pallas solve (the same float32 products summed in another order, then
+# divided by eigenvalues down to r*eps).  The stepA operator: absolute,
+# tests/test_pallas.py's bound for the Pallas operator.
+DCT_RTOL, CG_ATOL = 5e-6, 1e-5
 # Card vs CPU after 20 float32 ALG2 iterations: about 70x the float32 vs
 # float64 drift of the same run at 80x60 (1.5e-5 on crit, 1.2e-6 of
 # max|phi| on phi) — the products and sums of each iteration round
@@ -125,6 +159,22 @@ def cuda_time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float, mem_bw: float, f32_rate: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / mem_bw, ops / f32_rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _timing_line(label, ms, plain_ms, bound_ms, bound_by, nbytes, ops,
+                 extra=""):
+    _log(f"  {label} timing: kernel {ms:.4f} ms{extra}, plain "
+         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+         f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop), kernel at "
+         f"{100 * bound_ms / ms:.1f}% of bound")
+
+
 # ------------------------------------------------------- kernel vs plain
 
 def kernel_inputs(ncomp: int, relaxed: bool, device, seed: int = SEED):
@@ -155,15 +205,13 @@ def fused_pointwise_bound(g, m, r, alpha, qp, mem_bw, f32_rate):
     per_point = (3 * ncomp if qp is not None else 0) + 2 * ncomp \
         + 2 * k + 2 + 10 + 10
     ops = L * per_point + 35 * outside
-    t_bytes, t_ops = nbytes / mem_bw, ops / f32_rate
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return (*bound(nbytes, ops, mem_bw, f32_rate), nbytes, ops)
 
 
 def check_kernel(device, mem_bw, f32_rate):
     """Phase 3: every (ncomp, alpha) case checked against the plain
-    version; returns the largest elementwise error and, for ncomp = 3,
-    the timings by alpha."""
+    version; returns the largest elementwise error and the timings by
+    (ncomp, alpha)."""
     r = 1.0
     worst = 0.0
     timings = {}
@@ -195,25 +243,174 @@ def check_kernel(device, mem_bw, f32_rate):
                 if not torch.equal(got[i], again[i]):
                     raise AssertionError(f"{case}: repeat launch changed "
                                          f"{name}")
-            if ncomp == 3:
-                enqueue, _ = fp.prepare_launch(g, m, r, alpha, qp)
-                ms = cuda_time_ms(enqueue)
-                wrapper_ms = cuda_time_ms(lambda: fp.fused_pointwise(
-                    g, m, r, alpha=alpha, q_prev=qp))
-                plain_ms = cuda_time_ms(lambda: fp.fused_pointwise_reference(
-                    g, m, r, alpha, qp))
-                bound_ms, bound_by, nbytes, ops = fused_pointwise_bound(
-                    g, m, r, alpha, qp, mem_bw, f32_rate)
-                timings[alpha] = dict(ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by)
-                _log(f"  {case} timing: kernel {ms:.4f} ms (through the "
-                     f"wrapper {wrapper_ms:.4f} ms a call), plain "
-                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                     f"({bound_by}: {nbytes / 1e6:.1f} MB, "
-                     f"{ops / 1e6:.1f} Mop), kernel at "
-                     f"{100 * bound_ms / ms:.1f}% of bound")
+            enqueue, _ = fp.prepare_launch(g, m, r, alpha, qp)
+            ms = cuda_time_ms(enqueue)
+            wrapper_ms = cuda_time_ms(lambda: fp.fused_pointwise(
+                g, m, r, alpha=alpha, q_prev=qp))
+            plain_ms = cuda_time_ms(lambda: fp.fused_pointwise_reference(
+                g, m, r, alpha, qp))
+            bound_ms, bound_by, nbytes, ops = fused_pointwise_bound(
+                g, m, r, alpha, qp, mem_bw, f32_rate)
+            timings[(ncomp, alpha)] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by)
+            _timing_line(case, ms, plain_ms, bound_ms, bound_by, nbytes, ops,
+                         f" (through the wrapper {wrapper_ms:.4f} ms a call)")
             del g, m, qp, got, again, want
     return worst, timings
+
+
+def _random(shape, device, seed, low=None, high=None):
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal(shape) if low is None
+         else rng.uniform(low, high, shape))
+    return torch.from_numpy(a.astype(np.float32)).to(device)
+
+
+def check_dct_solve(device, mem_bw, f32_rate):
+    """Phase 7, kernel #2: the whole solve against its plain version at
+    two shapes and two (r, eps); the per-slice kernel timed alone through
+    its enqueue closure, the plain slice body beside it, and the whole
+    dct-fused stepA beside the port's cuBLAS spectral stepA."""
+    worst = 0.0
+    for shape in (SHAPE, (5, 17, 23)):
+        for r, eps in ((1.0, 1e-2), (0.3, 1e-3)):
+            F = _random(shape, device, SEED + 1)
+            got = ds.dct_solve(F, r, eps)
+            again = ds.dct_solve(F, r, eps)
+            want = ds.dct_solve_reference(F, r, eps)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            worst = max(worst, err)
+            _log(f"  dct_solve {shape} r={r} eps={eps}: max |kernel - "
+                 f"plain| = {err:.3e}, / max|phi| = {rel:.3e}")
+            if not rel <= DCT_RTOL:
+                raise AssertionError(f"dct_solve {shape}: relative error "
+                                     f"{rel:.3e} > {DCT_RTOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"dct_solve {shape}: repeat launch "
+                                     "changed phi")
+    r, eps = 1.0, 1e-2
+    F = _random(SHAPE, device, SEED + 1)
+    p = ds.plan(SHAPE, F.dtype, F.device, r, eps)
+    Fz = ds.t_forward(F, p)
+    enqueue, _ = ds.prepare_launch(Fz, p)
+    ms = cuda_time_ms(enqueue)
+    plain_ms = cuda_time_ms(lambda: ds.slice_solve_reference(Fz, p))
+    fused_ops, dct_ops = foto.stepA_ops("dct-fused"), foto.stepA_ops("dct")
+    stepA_ms = cuda_time_ms(lambda: fused_ops.stepA_solve(F, r, eps, 0, 0))
+    library_ms = cuda_time_ms(lambda: dct_ops.stepA_solve(F, r, eps, 0, 0))
+    Nt, Ny, Nx = SHAPE
+    n = Nt * Ny * Nx
+    # four contractions of depth Ny, Nx, Ny, Nx, and 5 operations a point
+    # to assemble the divisor and divide; the slices in and out once, the
+    # two matrices and the eigenvalue vectors once
+    ops = 2 * n * (2 * Ny + 2 * Nx) + 5 * n
+    nbytes = 4 * (2 * n + Ny * Ny + Nx * Nx + Nt + Ny + Nx)
+    bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
+    _timing_line("dct_solve (16, 240, 320)", ms, plain_ms, bound_ms,
+                 bound_by, nbytes, ops,
+                 f" ({ops / ms / 1e9:.2f} TFLOP/s)")
+    _log(f"  stepA solve: dct-fused (t products + kernel) {stepA_ms:.4f} "
+         f"ms, dct (six cuBLAS fp32 matmuls) {library_ms:.4f} ms")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                stepA_ms=stepA_ms)
+
+
+def check_projection(device, mem_bw, f32_rate):
+    """Phase 7, kernel #3, at (3|4, 16, 240, 320); returns the largest
+    error and the timings by component count."""
+    worst, timings = 0.0, {}
+    for ncomp in (3, 4):
+        p = _random((ncomp,) + SHAPE, device, SEED + 2, -4.0, 3.0)
+        got = pk.project_paraboloid(p)
+        again = pk.project_paraboloid(p)
+        want = pk.project_paraboloid_reference(p)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        bad = int((err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).sum())
+        worst = max(worst, float(err.max()))
+        _log(f"  project_paraboloid ncomp={ncomp}: max |kernel - plain| = "
+             f"{float(err.max()):.3e}, outside tolerance: {bad}")
+        if bad or not torch.equal(got, again):
+            raise AssertionError(f"project_paraboloid ncomp={ncomp}: "
+                                 f"{bad} points off, or repeats differ")
+        enqueue, _ = pk.prepare_launch(p)
+        ms = cuda_time_ms(enqueue)
+        plain_ms = cuda_time_ms(lambda: pk.project_paraboloid_reference(p))
+        k, L = ncomp - 1, p[0].numel()
+        outside = int((2 * p[0] + (p[1:] ** 2).sum(0) > 0).sum())
+        # per point 2k+2 for |b|^2 and the membership test; points outside
+        # K add ~35 for the cubic root and the rescale
+        ops = L * (2 * k + 2) + 35 * outside
+        nbytes = 2 * p.numel() * p.element_size()
+        bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
+        _timing_line(f"project_paraboloid ncomp={ncomp}", ms, plain_ms,
+                     bound_ms, bound_by, nbytes, ops)
+        timings[ncomp] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+    return worst, timings
+
+
+def _conv3d_operator(r, eps, device):
+    """One PyTorch call computing the stepA operator: a 3x3x3 convolution
+    (7-point stencil) with replicate padding, whose replicated halo gives
+    exactly the 'N' rows (x[-1] = x0: x[-1] - 2x0 + x1 = -x0 + x1)."""
+    conv = torch.nn.Conv3d(1, 1, 3, padding=1, padding_mode="replicate",
+                           bias=False).to(device)
+    w = torch.zeros(3, 3, 3)
+    w[1, 1, 1] = 6.0 * r + r * eps
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w[idx] = -r
+    with torch.no_grad():
+        conv.weight.copy_(w[None, None])
+    conv.requires_grad_(False)
+    return lambda x: conv(x[None, None])[0, 0]
+
+
+def check_cg_operator(device, mem_bw, f32_rate):
+    """Phase 7, kernels #4 and #5 (one CUDA kernel behind two entry
+    points) at two shapes; timings at the sweep shape, with a replicate-
+    padded conv3d as the library call (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    r, eps = 1.0, 1e-2
+    worst, out = 0.0, {}
+    for shape in (SHAPE, (5, 17, 23)):
+        x = _random(shape, device, SEED + 3)
+        want = cgk.cg_operator_reference(x, r, eps)
+        for name, fn in (("cg_operator", cgk.cg_operator),
+                         ("cg_operator_blocked", cgk.cg_operator_blocked)):
+            got, again = fn(x, r, eps), fn(x, r, eps)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            _log(f"  {name} {shape}: max |kernel - plain| = {err:.3e}")
+            if not err < CG_ATOL or not torch.equal(got, again):
+                raise AssertionError(f"{name} {shape}: error {err:.3e} or "
+                                     "repeats differ")
+    x = _random(SHAPE, device, SEED + 3)
+    conv = _conv3d_operator(r, eps, device)
+    conv_err = float((conv(x) - cgk.cg_operator_reference(x, r, eps)
+                      ).abs().max())
+    enqueue, _ = cgk.prepare_launch(x, r, eps)
+    ms = cuda_time_ms(enqueue)
+    plain_ms = cuda_time_ms(lambda: cgk.cg_operator_reference(x, r, eps))
+    library_ms = cuda_time_ms(lambda: conv(x))
+    # per point: 3 axes x 3 (two adds, one multiply), 2 adds, 3 for the axpy
+    ops = 14 * x.numel()
+    nbytes = 2 * x.numel() * x.element_size()
+    bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
+    _timing_line("cg_operator (16, 240, 320)", ms, plain_ms, bound_ms,
+                 bound_by, nbytes, ops)
+    _log(f"  library: replicate-padded conv3d {library_ms:.4f} ms (max "
+         f"|conv - plain| = {conv_err:.3e})")
+    for name in ("cg_operator", "cg_operator_blocked"):
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+    return worst, out
 
 
 # ------------------------------------------------------------ main path
@@ -237,63 +434,103 @@ def textured_pair(h: int, w: int, shift=(2, 3), seed: int = SEED,
     return f0, f1
 
 
-def run_main_path(workdir: Path):
-    """Phase 4: the CLI on a textured pair; returns the solve's record."""
+def write_pair(workdir: Path):
+    """The seeded pair as PGM files, and the 8-bit frames read back."""
     _, h, w = SHAPE
     f0, f1 = textured_pair(h, w)
     p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
     image.save_grayscale(f0, str(p0))
     image.save_grayscale(f1, str(p1))
-    out, bench, state = (workdir / "flow.flo", workdir / "bench.txt",
-                         workdir / "state.npz")
-    argv = [str(p0), str(p1), *FOTO_ARGS, f"--out={out}",
+    g0, _, _ = image.open_grayscale(str(p0))
+    g1, _, _ = image.open_grayscale(str(p1))
+    return p0, p1, (g0, g1)
+
+
+def run_cli_path(workdir: Path, label: str, args, expect):
+    """The CLI on the pair with every launch count set to 0 just before and
+    read just after; ``expect(iterations, cg_steps)`` gives the launches
+    each kernel must show.  Returns the run's record."""
+    _, h, w = SHAPE
+    p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
+    d = workdir / label
+    d.mkdir()
+    out, bench, state = d / "flow.flo", d / "bench.txt", d / "state.npz"
+    argv = [str(p0), str(p1), *args, f"--out={out}",
             f"--save-benchmark={bench}", f"--checkpoint={state}", "--quiet"]
-    fp.launches = 0
+    kernels.reset_launch_counts()
     rc = cli.main(argv)
-    launches = fp.launches
+    launches = kernels.launch_counts()
     if rc != 0:
-        raise AssertionError(f"CLI exited with {rc}")
+        raise AssertionError(f"{label}: CLI exited with {rc}")
     with np.load(state) as z:
         iterations, crit = int(z["iteration"]), float(z["crit"])
+        cg_steps = int(z["cg_iterations"])
     lines = dict(ln.split(": ", 1) for ln in bench.read_text().splitlines())
     ie, solve_s = float(lines["IE"]), float(lines["time"].rstrip("s"))
     g0, _, _ = image.open_grayscale(str(p0))
     g1, _, _ = image.open_grayscale(str(p1))
     ie_identity = metrics.IE(w, h, g0, g1)
     fw, fh, u, v = flo.read_flo(str(out))
-    _log(f"  iterations={iterations} crit={crit:.6g} launches={launches} "
-         f"solve_s={solve_s:.4f} ms_per_alg2_iteration="
-         f"{1e3 * solve_s / max(iterations, 1):.4f} IE={ie:.6g} "
-         f"IE_identity={ie_identity:.6g}")
+    _log(f"  {label}: iterations={iterations} cg_steps={cg_steps} "
+         f"crit={crit:.6g} launches={launches} solve_s={solve_s:.4f} "
+         f"ms_per_alg2_iteration={1e3 * solve_s / max(iterations, 1):.4f} "
+         f"IE={ie:.6g} IE_identity={ie_identity:.6g}")
     if not iterations > 0:
-        raise AssertionError("no ALG2 iteration ran")
-    if launches != iterations:
-        raise AssertionError(f"kernel launched {launches} times in "
-                             f"{iterations} ALG2 iterations")
+        raise AssertionError(f"{label}: no ALG2 iteration ran")
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(expect(iterations, cg_steps))
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             f"expected {want}")
+    if not np.isfinite(crit):
+        raise AssertionError(f"{label}: the solve ended on a NaN criterion")
     if not (np.isfinite(ie) and ie < ie_identity):
-        raise AssertionError(f"IE {ie} not below the identity warp's "
-                             f"{ie_identity}")
+        raise AssertionError(f"{label}: IE {ie} not below the identity "
+                             f"warp's {ie_identity}")
     if (fw, fh) != (w, h) or not (np.isfinite(u).all()
                                   and np.isfinite(v).all()):
-        raise AssertionError(f".flo is {fw}x{fh} or not finite")
-    return dict(iterations=iterations, crit=crit, launches=launches,
-                solve_s=solve_s, ie=ie, ie_identity=ie_identity,
-                rho=(g0, g1))
+        raise AssertionError(f"{label}: .flo is {fw}x{fh} or not finite")
+    return dict(iterations=iterations, cg_steps=cg_steps, crit=crit,
+                launches=launches, solve_s=solve_s, ie=ie,
+                ie_identity=ie_identity)
 
 
-def card_vs_cpu(rho):
-    """Phase 5: CARD_VS_CPU_ITERATIONS fixed ALG2 iterations on the card and
-    on the CPU, same inputs."""
+def run_main_path(workdir: Path):
+    """Phase 4: the CLI's FOTO solve with the fused kernel."""
+    return run_cli_path(workdir, "foto-auto", FOTO_ARGS,
+                        lambda it, cg: {"fused_pointwise": it})
+
+
+def _wfr_history(a, b, n, ops):
+    """n fixed WFR iterations (no stopping rule) -> (state, crit trace)."""
+    state = wfr.init_state(a, b, SHAPE[0])
+    crits = []
+    for _ in range(n):
+        state = wfr.alg2_iteration(state, a, b, r=1.0, delta=WFR_DELTA,
+                                   reg_epsilon=1e-2, convergence_tol=0.0,
+                                   ops=ops, admm_alpha=ADMM_ALPHA)
+        crits.append(state.crit)
+    return state, torch.stack(crits)
+
+
+def _foto_history(a, b, n, ops):
+    st, hist = foto.solve_potential_with_history(
+        a, b, SHAPE[0], n, r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA,
+        ops=ops)
+    return st, hist["crit"]
+
+
+def card_vs_cpu(rho, history=_foto_history):
+    """Phases 5 and 9: CARD_VS_CPU_ITERATIONS fixed ALG2 iterations on the
+    card and on the CPU, same inputs, with the pallas ops set."""
     n = CARD_VS_CPU_ITERATIONS
     runs = {}
     for dev in ("cuda", "cpu"):
         a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                 for x in rho)
         t0 = time.time()
-        st, hist = foto.solve_potential_with_history(
-            a, b, SHAPE[0], n, r=1.0, reg_epsilon=1e-2,
-            admm_alpha=ADMM_ALPHA, ops=foto.stepA_ops("pallas"))
-        crit = hist["crit"].cpu().double()
+        st, crit = history(a, b, n, foto.stepA_ops("pallas"))
+        crit = crit.cpu().double()
         phi = st.phi.cpu().double()
         el = time.time() - t0
         _log(f"  {dev}: {n} iterations in {el:.3f} s ({1e3 * el / n:.3f} ms "
@@ -311,37 +548,46 @@ def card_vs_cpu(rho):
     return crit_dev, phi_dev
 
 
+def profile_window(label: str, run, n: int, top: int = 15):
+    """Kernel time by name over ``run(n)`` on the card, and the device's
+    busy share of the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run(n)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.time() - t0)
+    events = prof.key_averages()
+    device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in device)
+    _log(f"  {label} window: {n} ALG2 iterations, wall "
+         f"{wall_us / 1e3:.3f} ms ({wall_us / 1e3 / n:.3f} ms each), device "
+         f"busy {busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% "
+         f"(idle {100 - 100 * busy_us / wall_us:.1f}%), "
+         f"{sum(e.count for e in device)} kernel launches")
+    for e in device[:top]:
+        _log(f"  {e.self_device_time_total / n:9.1f} us/iter "
+             f"{e.count // n:4d}x  {e.key[:90]}")
+    return events
+
+
 def profile_alg2(rho):
     """Phase 6: kernel time by name over PROFILE_ITERATIONS ALG2 iterations
     on the card, the device's busy share of the window's wall time, and the
     CLI's solve again, warm."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n = PROFILE_ITERATIONS
     a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
             for x in rho)
     kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA,
               ops=foto.stepA_ops("pallas"))
     foto.solve_potential_with_history(a, b, SHAPE[0], 2, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        foto.solve_potential_with_history(a, b, SHAPE[0], n, **kw)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.time() - t0)
-    events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    _log(f"  window: {n} ALG2 iterations, wall {wall_us / 1e3:.3f} ms "
-         f"({wall_us / 1e3 / n:.3f} ms each), device busy "
-         f"{busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% (idle "
-         f"{100 - 100 * busy_us / wall_us:.1f}%), "
-         f"{sum(e.count for e in kernels)} kernel launches")
-    for e in kernels[:15]:
-        _log(f"  {e.self_device_time_total / n:9.1f} us/iter "
-             f"{e.count // n:4d}x  {e.key[:90]}")
+    events = profile_window("foto pallas", lambda k: (
+        foto.solve_potential_with_history(a, b, SHAPE[0], k, **kw)), n)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     for e in host[:10]:
@@ -354,6 +600,70 @@ def profile_alg2(rho):
     el = time.time() - t0
     _log(f"  warm solve: {res.state.iteration} iterations in {el:.4f} s "
          f"({1e3 * el / res.state.iteration:.4f} ms each)")
+
+
+# ------------------------------------------------------------ new paths
+
+def run_paths(workdir: Path):
+    """Phase 8: the four new paths through the CLI."""
+    cut = [a for a in FOTO_ARGS if not a.startswith("--max-it")]
+    _log(f"  cg-pallas cut: --max-it={CG_PALLAS_MAX_IT} (FOTO_ARGS has "
+         "200)")
+    return {
+        "foto-dct-fused": run_cli_path(
+            workdir, "foto-dct-fused",
+            [*FOTO_ARGS, "--stepA-solver=dct-fused"],
+            lambda it, cg: {"dct_solve": it}),
+        "foto-cg-pallas": run_cli_path(
+            workdir, "foto-cg-pallas",
+            [*cut, f"--max-it={CG_PALLAS_MAX_IT}", "--stepA-solver=cg-pallas"],
+            lambda it, cg: {"cg_operator_blocked": cg}),
+        "wfr-auto": run_cli_path(
+            workdir, "wfr-auto", WFR_ARGS,
+            lambda it, cg: {"fused_pointwise": it}),
+        "wfr-dct-fused": run_cli_path(
+            workdir, "wfr-dct-fused",
+            [*WFR_ARGS, "--stepA-solver=dct-fused"],
+            lambda it, cg: {"dct_solve": it}),
+    }
+
+
+def profile_paths(rho):
+    """Phase 10: profiler windows of the new paths and warm solves."""
+    n = PROFILE_ITERATIONS
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+            for x in rho)
+    foto_kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA)
+    wfr_kw = dict(foto_kw, delta=WFR_DELTA)
+    for solver in ("dct-fused", "cg-pallas"):
+        ops = foto.stepA_ops(solver)
+        k = 1 if solver == "cg-pallas" else n
+        foto.solve_potential_with_history(a, b, SHAPE[0], 1, ops=ops,
+                                          **foto_kw)
+        profile_window(f"foto {solver}", lambda m: (
+            foto.solve_potential_with_history(a, b, SHAPE[0], m, ops=ops,
+                                              **foto_kw)), k, top=8)
+    for solver in ("pallas", "dct-fused"):
+        ops = foto.stepA_ops(solver)
+        _wfr_history(a, b, 1, ops)
+        profile_window(f"wfr {solver}", lambda m: _wfr_history(a, b, m, ops),
+                       n, top=8)
+    # warm solves under the stopping rule, one sync per iteration
+    runs = [("foto", s, foto.solve, foto_kw) for s in ("dct", "dct-fused")]
+    runs += [("wfr", s, wfr.solve, wfr_kw)
+             for s in ("pallas", "dct", "dct-fused")]
+    for algo, solver, solve, kw in runs:
+        ops = foto.stepA_ops(solver)
+        solve(a, b, SHAPE[0], convergence_tol=0.01, max_it=2, ops=ops, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = solve(a, b, SHAPE[0], convergence_tol=0.01, max_it=200,
+                    ops=ops, **kw)
+        res.u.cpu()
+        el = time.time() - t0
+        _log(f"  warm {algo} {solver}: {res.state.iteration} iterations in "
+             f"{el:.4f} s ({1e3 * el / res.state.iteration:.4f} ms each), "
+             f"crit {float(res.state.crit):.6g}")
 
 
 def main() -> int:
@@ -375,39 +685,77 @@ def main() -> int:
     with Phase("2 build"):
         t0 = time.time()
         report = _build.build(extra_flags=("-Xptxas", "-v"))
-        _log(f"  nvcc build {time.time() - t0:.2f} s -> "
-             f"{_build.library_path()}")
+        _log(f"  nvcc build of {len(_build.sources())} sources, one call, "
+             f"{time.time() - t0:.2f} s -> {_build.library_path()}")
         for ln in report.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 _log(f"  {ln.strip()}")
         _build.load_library()
 
     with Phase("3 kernel vs plain"):
         worst, timings = check_kernel(device, mem_bw, f32_rate)
 
-    with Phase("4 main path"), tempfile.TemporaryDirectory() as tmp:
-        solve = run_main_path(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        _, _, rho = write_pair(workdir)
 
-    with Phase("5 card vs cpu"):
-        card_vs_cpu(solve["rho"])
+        with Phase("4 main path"):
+            solve = run_main_path(workdir)
 
-    with Phase("6 profile"):
-        profile_alg2(solve["rho"])
+        with Phase("5 card vs cpu"):
+            card_vs_cpu(rho)
 
-    t = timings[ADMM_ALPHA]
-    record = {"kernels": [{
-        "name": "fused_pointwise",
-        "route": "cuda",
-        "source": "ofot_tpu_torch/csrc/fused_pointwise.cu",
-        "replaces": "ofot_tpu/ops/pallas/kernels.py:224",
-        "launches": solve["launches"],
-        "max_abs_err": worst,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": None,
-    }]}
+        with Phase("6 profile"):
+            profile_alg2(rho)
+
+        with Phase("7 kernels vs plain"):
+            dct_rec = check_dct_solve(device, mem_bw, f32_rate)
+            proj_err, proj = check_projection(device, mem_bw, f32_rate)
+            cg_err, cg_recs = check_cg_operator(device, mem_bw, f32_rate)
+
+        with Phase("8 paths"):
+            paths = run_paths(workdir)
+
+        with Phase("9 wfr card vs cpu"):
+            card_vs_cpu(rho, history=_wfr_history)
+
+        with Phase("10 new-path profile"):
+            profile_paths(rho)
+
+    # launches: each kernel's count from the path that runs it; the
+    # standalone projection and the whole-array operator are on no path
+    every_run = [solve, *paths.values()]
+    t = timings[(3, ADMM_ALPHA)]
+
+    def entry(name, source, replaces, launches, err, rec, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"ofot_tpu_torch/csrc/{source}",
+                "replaces": f"ofot_tpu/ops/pallas/kernels.py:{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": library_ms}
+
+    record = {"kernels": [
+        entry("fused_pointwise", "fused_pointwise.cu", 224,
+              solve["launches"]["fused_pointwise"], worst, t, None),
+        # the library call is the port's whole cuBLAS stepA, so the whole
+        # dct-fused stepA (t products + kernel) stands beside it
+        dict(entry("dct_solve", "dct_solve.cu", 355,
+                   paths["foto-dct-fused"]["launches"]["dct_solve"],
+                   dct_rec["max_abs_err"], dct_rec, dct_rec["library_ms"]),
+             stepA_ms=dct_rec["stepA_ms"]),
+        entry("project_paraboloid", "projection.cu", 130,
+              sum(r["launches"]["project_paraboloid"] for r in every_run),
+              proj_err, proj[3], None),
+        entry("cg_operator", "cg_operator.cu", 488,
+              sum(r["launches"]["cg_operator"] for r in every_run),
+              cg_err, cg_recs["cg_operator"],
+              cg_recs["cg_operator"]["library_ms"]),
+        entry("cg_operator_blocked", "cg_operator.cu", 528,
+              paths["foto-cg-pallas"]["launches"]["cg_operator_blocked"],
+              cg_err, cg_recs["cg_operator_blocked"],
+              cg_recs["cg_operator_blocked"]["library_ms"]),
+    ]}
     _log(f"chip_smoke wall {time.time() - t_start:.2f} s")
     _log(smi)
     _log(json.dumps(record))

@@ -1,4 +1,4 @@
-"""CLI entry point of the PyTorch/CUDA port — the FOTO branch.
+"""CLI entry point of the PyTorch/CUDA port — the FOTO and WFR branches.
 
 The parser is ``ofot_tpu.cli.main.build_parser()``'s, so run scripts
 written for the reference or the JAX package work unchanged, including
@@ -7,9 +7,11 @@ written for the reference or the JAX package work unchanged, including
 (default) or ``cpu``; without a card, ``cuda`` raises instead of falling
 back.
 
-This slice of the port runs ``--algo=foto`` with the stepA solvers ``cg``,
-``dct``, ``pallas`` and ``auto``.  Other algorithms and the JAX-only
-outputs exit with code 2 and name the slice that brings them.
+The port runs ``--algo=foto`` and ``--algo=WFR`` with the stepA solvers
+``cg``, ``dct``, ``pallas``, ``dct-fused``, ``cg-pallas`` and ``auto``.
+Other algorithms, ``dct-refined`` and the JAX-only outputs exit with code
+2 and name the slice that brings them.  After the solve the CLI prints the
+launches of every CUDA kernel on one ``kernel_launches=`` line.
 
 Usage:  python -m ofot_tpu_torch.cli.main f0.pgm f1.pgm --algo=foto --Nt=16 ...
 """
@@ -60,9 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-flow-viz", nargs="?",
                    help="Middlebury color-wheel PNG of the flow (not ported)")
     p.add_argument("--checkpoint", nargs="?",
-                   help="save final FOTO solver state here (.npz)")
+                   help="save final FOTO/WFR solver state here (.npz)")
     p.add_argument("--resume", nargs="?",
-                   help="resume FOTO from a saved state (.npz)")
+                   help="resume FOTO/WFR from a saved state (.npz)")
     p.add_argument("--profile", nargs="?",
                    help="profiler trace directory (not ported)")
     p.add_argument("--quiet", action="store_true",
@@ -71,11 +73,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cg", "dct", "dct-refined", "pallas",
                             "dct-fused", "cg-pallas", "auto"],
                    default="auto",
-                   help="FOTO stepA backend: cg = reference-faithful "
+                   help="stepA backend: cg = reference-faithful "
                         "iterative solve; dct = exact spectral solve; "
                         "pallas = dct + the fused stepB/stepC/criterion "
-                        "CUDA kernel; auto (default) = pallas on cuda, cg "
-                        "on cpu")
+                        "CUDA kernel; dct-fused = dct with the per-slice "
+                        "transforms in a CUDA kernel; cg-pallas = cg with "
+                        "the operator in a CUDA kernel; auto (default) = "
+                        "pallas on cuda, cg (foto) or dct (WFR) on cpu")
     p.add_argument("--admm-alpha", type=float, default=1.0,
                    help="ADMM over-relaxation factor for FOTO (1.0 = exact "
                         "reference iteration; 1.5-1.8 typically converges "
@@ -115,8 +119,9 @@ _NOT_PORTED_FLAGS = {
 }
 _LATER_ALGOS = {"GN": "the GN/HS/pyramid slice",
                 "HS": "the GN/HS/pyramid slice",
-                "WFR": "the WFR slice",
                 "sinkhorn": "the Sinkhorn slice"}
+# stepA sets that run a float32-only CUDA kernel on cuda
+_FLOAT32_KERNEL_SETS = ("pallas", "dct-fused", "cg-pallas")
 
 
 def _device(platform: str) -> torch.device:
@@ -134,7 +139,7 @@ def main(argv=None) -> int:
         if getattr(args, attr):
             print(f"ERROR: {what} is not ported yet", file=sys.stderr)
             return 2
-    if args.algo != "foto":
+    if args.algo not in ("foto", "WFR"):
         later = _LATER_ALGOS.get(args.algo)
         if later is None:
             print(f"ERROR: unknown --algo '{args.algo}' (expected foto, GN, "
@@ -144,20 +149,22 @@ def main(argv=None) -> int:
                   "brings it", file=sys.stderr)
         return 2
 
-    from ofot_tpu_torch.ops.kernels import fused_pointwise as fp_kernel
-    from ofot_tpu_torch.solvers import foto
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.solvers import foto, wfr
     from ofot_tpu_torch.utils import checkpoint, flo, image, metrics, warp
 
-    solver = foto.resolve_stepA_solver(args.stepA_solver, args.platform)
+    resolve = (foto.resolve_stepA_solver if args.algo == "foto"
+               else wfr.resolve_stepA_solver)
+    solver = resolve(args.stepA_solver, args.platform)
     try:
         ops = foto.stepA_ops(solver)
     except ValueError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 2
-    if solver == "pallas" and args.platform == "cuda" \
+    if solver in _FLOAT32_KERNEL_SETS and args.platform == "cuda" \
             and args.precision == "f64":
-        print("ERROR: the pallas stepA set runs the fused CUDA kernel, which "
-              "is float32 only; use --precision=f32, another --stepA-solver, "
+        print(f"ERROR: the {solver} stepA set runs a CUDA kernel that is "
+              "float32 only; use --precision=f32, another --stepA-solver, "
               "or --platform=cpu", file=sys.stderr)
         return 2
 
@@ -181,36 +188,59 @@ def main(argv=None) -> int:
     rho1_d = torch.as_tensor(rho1, dtype=dtype, device=device)
     rho2_d = torch.as_tensor(rho2, dtype=dtype, device=device)
 
-    print(" - algorithm: FOTO")
+    if args.algo == "foto":
+        print(" - algorithm: FOTO")
+    else:
+        print(" - algorithm: WFR (unbalanced optimal transport)")
     print(f"\t - Nt={args.Nt}")
     print(f"\t - r={args.r}")
+    if args.algo == "WFR":
+        print(f"\t - delta={args.wfr_delta}")
     print(f"\t - convergence_tol={args.convergence_tol}")
     print(f"\t - reg_epsilon={args.reg_epsilon}")
     print(f"\t - max_it={args.max_it}")
     init = (checkpoint.load_state(args.resume, device, dtype)
             if args.resume else None)
 
-    launches_before = fp_kernel.launches
+    launches_before = kernels.launch_counts()
+    common = dict(r=args.r, convergence_tol=args.convergence_tol,
+                  reg_epsilon=args.reg_epsilon, max_it=args.max_it,
+                  verbose=not args.quiet, init=init, ops=ops,
+                  admm_alpha=args.admm_alpha, auto_r=args.auto_r)
     start_time = time.time()
-    result = foto.solve(
-        rho1_d, rho2_d, args.Nt, r=args.r,
-        convergence_tol=args.convergence_tol,
-        reg_epsilon=args.reg_epsilon, max_it=args.max_it,
-        verbose=not args.quiet, init=init, ops=ops,
-        admm_alpha=args.admm_alpha, auto_r=args.auto_r)
-    u_d, v_d, m_d = result.u, result.v, result.m
+    if args.algo == "foto":
+        result = foto.solve(rho1_d, rho2_d, args.Nt, **common)
+        m_d = result.m
+    else:
+        result = wfr.solve(rho1_d, rho2_d, args.Nt, delta=args.wfr_delta,
+                           **common)
+        # the luminosity slot composes the growth the source term modelled
+        # with the advective dilution correction -div(u, v)
+        m_d = result.m_combined
+    u_d, v_d = result.u, result.v
     u, v, m = u_d.cpu().numpy(), v_d.cpu().numpy(), m_d.cpu().numpy()
     solve_end = time.time()
     state = result.state
     print(f"solver: iterations={state.iteration} "
           f"inner_iterations={state.cg_iterations} "
           f"crit={float(state.crit)} stepA_solver={solver}")
-    print(f"kernel_launches={fp_kernel.launches - launches_before}")
-    if not args.quiet:
+    launched = kernels.launch_counts()
+    print("kernel_launches=" + ",".join(
+        f"{k}:{launched[k] - launches_before[k]}" for k in launched))
+    if not args.quiet and args.algo == "foto":
         w2 = float(foto.wasserstein2(state))
         print(f"W2(rho0, rhoT) = {w2:.6g} px")
+    elif not args.quiet:
+        dist = float(wfr.wfr_distance(state))
+        created = float(wfr.total_created_mass(state, args.wfr_delta))
+        print(f"WFR(rho0, rhoT) = {dist:.6g} px, "
+              f"created mass = {created:.6g}")
     if args.checkpoint:
         checkpoint.save_state(args.checkpoint, state)
+    if args.algo == "WFR" and args.save_growth:
+        growth = result.growth.cpu().numpy()
+        image.save_grayscale(np.clip((growth + 1) / 2, 0, 1).reshape(h, w),
+                             args.save_growth)
     timer = solve_end - start_time
 
     # Benchmark (reference main.py:107-134)

@@ -28,57 +28,21 @@
 // block count the sums are bitwise-repeatable from run to run, so the ALG2
 // stagnation stop |prev - crit| < 1e-5 cannot flip with reduction order.
 //
-// CUDA has cbrtf and acosf, so the projection uses the direct cubic-root
-// form of ofot_tpu/ops/projection.py instead of the TPU kernel's exp/log
-// cube root and Newton-iterated cos(acos(x)/3).
+// The projection is project_point<K> of paraboloid.cuh, shared with the
+// standalone projection kernel (projection.cu).
 //
 // Plain C interface (no PyTorch header): raw device pointers, the element
 // count, r, alpha and the stream; the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "paraboloid.cuh"
+
 namespace {
 
+using ofot::project_point;
+
 constexpr int kThreads = 256;
-
-constexpr float kSqrt2 = 1.4142135623730951f;
-constexpr float kTrigCoef = 1.6329931618554521f;   // 2*sqrt(2/3)
-constexpr float kAcosCoef = 1.8371173070873836f;   // (3/2)^(3/2)
-constexpr float kEps = 1e-20f;
-
-// Project (alpha, beta_1..beta_K) onto K in place.
-template <int K>
-__device__ __forceinline__ void project_point(float& a, float (&b)[K]) {
-  float rho2 = 0.f;
-#pragma unroll
-  for (int c = 0; c < K; ++c) rho2 += b[c] * b[c];
-  if (2.f * a + rho2 <= 0.f) return;  // inside K: the point is its own image
-
-  const float rho = sqrtf(rho2);
-  const float ap1 = a + 1.f;
-  const float radicand = (4.f / 3.f) * ap1 * ap1 * ap1 + 4.5f * rho2;
-  float zh;
-  if (radicand > 0.f) {
-    // Cardano: single real root
-    const float s = 0.25f * kSqrt2 * rho + (1.f / 6.f) * sqrtf(radicand);
-    const float c = cbrtf(s);
-    const float c_safe = c > 0.f ? c : 1.f;
-    zh = -(1.f / 3.f) * ap1 / c_safe + c;
-  } else {
-    // trigonometric: three real roots (alpha < -1)
-    const float nam = fmaxf(-ap1, kEps);
-    const float arg =
-        fminf(fmaxf(kAcosCoef * rho / (nam * sqrtf(nam)), 0.f), 1.f);
-    zh = kTrigCoef * sqrtf(nam) * cosf(acosf(arg) / 3.f);
-  }
-  const bool single = radicand > 0.f;
-  a = single ? -zh * zh : -0.5f * zh * zh;
-  const float rho_h = single ? kSqrt2 * zh : zh;
-  // the beta direction is kept; at rho = 0 the apex case gives rho_h = 0
-  const float scale = rho_h / fmaxf(rho, kEps);
-#pragma unroll
-  for (int c = 0; c < K; ++c) b[c] *= scale;
-}
 
 // Sum v over the block in a fixed tree order; the result is in thread 0.
 __device__ __forceinline__ float block_sum(float v, float* smem) {

@@ -1,0 +1,150 @@
+"""Exact spectral stepA solve with a hand-written per-slice kernel: CUDA
+kernel and plain version.
+
+Counterpart of ``dct_solve_pallas`` (ofot_tpu/ops/pallas/kernels.py:383,
+per-slice body ``_dct_solve_slice_kernel`` :355): solves
+``(-r*L_st + r*eps*I) phi = F`` on an (Nt, Ny, Nx) field.  As in the JAX
+function, the two t-axis contractions with the DCT-II matrix Ct (depth Nt)
+are plain matrix products outside the kernel; the per-slice body (y and x
+forward transforms, the spectral divide, y and x inverse transforms) is the
+CUDA kernel of ``ofot_tpu_torch/csrc/dct_solve.cu`` on CUDA tensors and
+``slice_solve_reference`` on CPU tensors.  Any other device, dtype or
+layout raises.
+
+The transform matrices and the 1-D eigenvalue vectors are built once per
+``(shape, dtype, device, r, eps)`` (:func:`plan`), as ``solvers/dct.py``'s
+``StepAPlan`` is.  The divisor is assembled from the 1-D vectors at each
+use, as the JAX function does, so no (Nt, Ny, Nx) spectrum exists.
+
+``launches`` counts the kernel's launches in this process, one per solve
+(the wrapper's one call into the library, which runs the four contractions
+as four launches of one GEMM kernel); only the CUDA branch of
+:func:`dct_solve` changes it.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ofot_tpu_torch.ops.kernels import _build
+from ofot_tpu_torch.solvers import dct
+
+launches = 0
+
+
+class Plan(NamedTuple):
+    """Everything of one stepA system that does not depend on F."""
+    Ct: torch.Tensor    # (Nt, Nt) DCT-II analysis matrices (rows = freqs)
+    Cy: torch.Tensor    # (Ny, Ny)
+    Cx: torch.Tensor    # (Nx, Nx)
+    lt: torch.Tensor    # (Nt,) Neumann eigenvalues in DCT-II order
+    ly: torch.Tensor    # (Ny,)
+    lx: torch.Tensor    # (Nx,)
+    r: float
+    reg_epsilon: float
+
+
+@functools.lru_cache(maxsize=16)
+def plan(shape, dtype, device, r: float, reg_epsilon: float) -> Plan:
+    """The matrices and eigenvalues of the system ``(-r L_st + r eps I)``
+    on an (Nt, Ny, Nx) grid, built once per key."""
+    device = torch.device(device)
+    mats = [dct._matrix(n, dtype, device) for n in shape]
+    eigs = [torch.as_tensor(dct._neumann_eigenvalues_np(n), dtype=dtype,
+                            device=device) for n in shape]
+    return Plan(*mats, *eigs, r=float(r), reg_epsilon=float(reg_epsilon))
+
+
+def _plan_for(F: torch.Tensor, r, reg_epsilon) -> Plan:
+    if F.dim() != 3:
+        raise ValueError(f"F must be (Nt, Ny, Nx), got shape "
+                         f"{tuple(F.shape)}")
+    return plan(tuple(F.shape), F.dtype, F.device, float(r),
+                float(reg_epsilon))
+
+
+def t_forward(F, p: Plan):
+    """``Ct @ F`` along t: the t-axis DCT, outside the kernel."""
+    Nt = F.shape[0]
+    return (p.Ct @ F.reshape(Nt, -1)).reshape(F.shape)
+
+
+def t_inverse(X, p: Plan):
+    """``Ct^T @ X`` along t: the inverse t-axis DCT."""
+    Nt = X.shape[0]
+    return (p.Ct.T @ X.reshape(Nt, -1)).reshape(X.shape)
+
+
+def slice_solve_reference(Fz: torch.Tensor, p: Plan) -> torch.Tensor:
+    """Plain torch version of the per-slice body: ``Cy @ S @ Cx^T``, the
+    divide by ``sb[y, x] + (-r lt[t])``, then ``Cy^T @ (.) @ Cx``."""
+    r, eps = p.r, p.reg_epsilon
+    t2 = (p.Cy @ Fz) @ p.Cx.T
+    sb = -r * (p.ly[:, None] + p.lx[None, :]) + r * eps
+    t2 = t2 / (sb + (-r * p.lt)[:, None, None])
+    return (p.Cy.T @ t2) @ p.Cx
+
+
+def dct_solve_reference(F: torch.Tensor, r, reg_epsilon) -> torch.Tensor:
+    """Plain torch version of :func:`dct_solve`: the t-forward product, the
+    per-slice body with ``torch.matmul``, the t-inverse product."""
+    p = _plan_for(F, r, reg_epsilon)
+    return t_inverse(slice_solve_reference(t_forward(F, p), p), p)
+
+
+def prepare_launch(Fz: torch.Tensor, p: Plan):
+    """Check a CUDA operand (the t-transformed field) and allocate the
+    output and scratch of one launch of the per-slice kernel.
+
+    Returns ``(enqueue, out)``; ``enqueue()`` puts the kernel's four
+    launches on the current stream, raises on a launch error and does not
+    count launches."""
+    _build.check_cuda(Fz, "dct_solve")
+    _build.check_operand("Fz", Fz, Fz)
+    if Fz.dim() != 3 or Fz.numel() == 0 or Fz.shape[0] > 65535:
+        raise ValueError("Fz must be a non-empty (Nt, Ny, Nx) field with "
+                         f"Nt <= 65535, got shape {tuple(Fz.shape)}")
+    for name in ("Cy", "Cx", "lt", "ly", "lx"):
+        t = getattr(p, name)
+        if t.device != Fz.device or t.dtype != torch.float32:
+            raise ValueError(f"the plan's {name} is {t.dtype} on {t.device}, "
+                             f"Fz float32 on {Fz.device}")
+    Nt, Ny, Nx = Fz.shape
+    if p.Cy.shape != (Ny, Ny) or p.Cx.shape != (Nx, Nx) \
+            or p.lt.shape != (Nt,):
+        raise ValueError(f"the plan does not fit Fz of shape {(Nt, Ny, Nx)}")
+    lib = _build.load_library()
+    out = torch.empty_like(Fz)
+    tmp = torch.empty_like(Fz)
+    args = (Fz.data_ptr(), out.data_ptr(), tmp.data_ptr(), p.Cy.data_ptr(),
+            p.Cx.data_ptr(), p.lt.data_ptr(), p.ly.data_ptr(),
+            p.lx.data_ptr(), Nt, Ny, Nx, p.r, p.r * p.reg_epsilon,
+            _build.stream_of(Fz))
+
+    def enqueue():
+        _build.check_launch(lib, lib.ofot_dct_solve(*args), "dct_solve")
+
+    enqueue.buffers = (Fz, out, tmp, p)
+    return enqueue, out
+
+
+def dct_solve(F: torch.Tensor, r, reg_epsilon) -> torch.Tensor:
+    """Exact solve of ``(-r*L_st + r*eps*I) phi = F`` on an (Nt, Ny, Nx)
+    field, in the DCT-II basis.
+
+    CUDA tensors: the t-axis products with ``torch.matmul`` (fp32, TF32 off)
+    and the per-slice body in the CUDA kernel (float32, contiguous, else it
+    raises).  CPU tensors: :func:`dct_solve_reference`."""
+    if F.device.type == "cpu":
+        return dct_solve_reference(F, r, reg_epsilon)
+    _build.check_cuda(F, "dct_solve")
+    _build.check_operand("F", F, F)
+    global launches
+    p = _plan_for(F, r, reg_epsilon)
+    enqueue, out = prepare_launch(t_forward(F, p), p)
+    enqueue()
+    launches += 1
+    return t_inverse(out, p)

@@ -101,20 +101,6 @@ def fused_pointwise_reference(grad_phi, mu, r, alpha=None, q_prev=None):
 
 # ------------------------------------------------------------ CUDA kernel
 
-def _check_cuda_operand(name, t, like):
-    if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, grad_phi on "
-                         f"{like.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 for the CUDA kernel, "
-                        f"got {t.dtype}")
-    if t.shape != like.shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, grad_phi "
-                         f"{tuple(like.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
     """Check CUDA operands and allocate the outputs of one kernel launch.
 
@@ -122,11 +108,12 @@ def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
     on the current stream and raises on a launch error; it does not count
     launches (the wrapper does).  Calling it again overwrites the same
     outputs, which is how a timing loop measures the launch alone."""
+    _build.check_cuda(grad_phi, "fused_pointwise")
     operands = [("grad_phi", grad_phi), ("mu", mu)]
     if q_prev is not None:
         operands.append(("q_prev", q_prev))
     for name, t in operands:
-        _check_cuda_operand(name, t, grad_phi)
+        _build.check_operand(name, t, grad_phi)
     ncomp = grad_phi.shape[0]
     if ncomp not in (3, 4) or grad_phi.dim() < 2:
         raise ValueError("grad_phi must be (1+k, ...) with k in {2, 3}, got "
@@ -143,8 +130,7 @@ def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
     partials = torch.empty(2 * nblocks, dtype=torch.float32,
                            device=grad_phi.device)
     sums = torch.empty(2, dtype=torch.float32, device=grad_phi.device)
-    with torch.cuda.device(grad_phi.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = _build.stream_of(grad_phi)
     args = (grad_phi.data_ptr(), mu.data_ptr(),
             None if q_prev is None else q_prev.data_ptr(),
             q.data_ptr(), mu_new.data_ptr(), partials.data_ptr(),
@@ -152,11 +138,8 @@ def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
             1.0 if alpha is None else float(alpha), stream)
 
     def enqueue():
-        err = lib.ofot_fused_pointwise(*args)
-        if err != 0:
-            raise RuntimeError(
-                "fused_pointwise kernel launch failed: CUDA error "
-                f"{err} ({lib.ofot_cuda_error_string(err).decode()})")
+        _build.check_launch(lib, lib.ofot_fused_pointwise(*args),
+                            "fused_pointwise")
 
     # the closure holds the raw pointers: keep every buffer alive with it
     enqueue.buffers = (grad_phi, mu, q_prev, partials)
@@ -186,9 +169,6 @@ def fused_pointwise(grad_phi: torch.Tensor, mu: torch.Tensor, r,
         raise ValueError("q_prev given without alpha")
     if grad_phi.device.type == "cpu":
         return fused_pointwise_reference(grad_phi, mu, r, alpha, q_prev)
-    if grad_phi.device.type != "cuda":
-        raise ValueError(f"fused_pointwise runs on cuda or cpu tensors, got "
-                         f"{grad_phi.device}")
     global launches
     enqueue, (q, mu_new, sums) = prepare_launch(grad_phi, mu, r, alpha,
                                                 q_prev)

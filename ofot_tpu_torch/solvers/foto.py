@@ -27,7 +27,13 @@ Ops sets (``stepA_ops``), named as the JAX CLI names them:
   * ``pallas``: spectral stepA plus the fused stepB + stepC + criterion
     pass, which on CUDA tensors is the hand-written kernel
     (``ops/kernels/fused_pointwise.py``).  The name is the JAX flag value,
-    kept so that run scripts work unchanged.
+    kept so that run scripts work unchanged;
+  * ``dct-fused``: spectral stepA whose per-slice body is the hand-written
+    kernel of ``ops/kernels/dct_solve.py``, unfused rest;
+  * ``cg-pallas``: CG stepA whose operator is the hand-written stencil
+    kernel of ``ops/kernels/cg_operator.py``, unfused rest.
+
+On CPU tensors every kernel wrapper runs its plain torch version.
 """
 
 from __future__ import annotations
@@ -37,8 +43,12 @@ from typing import NamedTuple
 import torch
 
 from ofot_tpu_torch.ops import operators
+from ofot_tpu_torch.ops.kernels import projection as projection_kernel
+from ofot_tpu_torch.ops.kernels.cg_operator import cg_operator_blocked
+from ofot_tpu_torch.ops.kernels.dct_solve import dct_solve
 from ofot_tpu_torch.ops.kernels.fused_pointwise import fused_pointwise
-from ofot_tpu_torch.ops.projection import project_paraboloid
+from ofot_tpu_torch.ops.projection import (project_paraboloid,
+                                           project_paraboloid_nd)
 from ofot_tpu_torch.solvers import cg as cg_mod
 from ofot_tpu_torch.solvers import dct, flow_extract
 
@@ -51,6 +61,8 @@ class _DefaultOps:
     sum = staticmethod(torch.sum)
     max = staticmethod(torch.max)
     project = staticmethod(project_paraboloid)
+    # k-beta-component projection for the source-extended (WFR) stepB
+    project_nd = staticmethod(project_paraboloid_nd)
 
     def cg_operator(self, r, reg_epsilon):
         """The stepA system operator A = -r*L_st + r*eps*I as a callable."""
@@ -84,23 +96,45 @@ class DCTOps(_DefaultOps):
         return plan.solve(F), 1
 
 
+class DCTFusedOps(DCTOps):
+    """Spectral stepA whose per-slice body (y/x transforms, divide, inverse
+    transforms) is the hand-written kernel of ``ops/kernels/dct_solve.py``
+    (one launch per solve on CUDA tensors); the t-axis products stay
+    ``torch.matmul``.  The kernel module keeps the matrices of each system
+    it has solved."""
+
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+        return dct_solve(F, r, reg_epsilon), 1
+
+
 class PallasOps(DCTOps):
     """Spectral stepA plus the fused stepB + stepC + criterion pass (one
-    kernel launch per ALG2 iteration on CUDA tensors)."""
+    kernel launch per ALG2 iteration on CUDA tensors).  ``project`` and
+    ``project_nd`` are the standalone projection kernel, which reads the
+    component count from the array; no ALG2 path calls them, since the
+    fused pass does the projection."""
     fused_pointwise = staticmethod(fused_pointwise)
+    project = staticmethod(projection_kernel.project_paraboloid)
+    project_nd = project
+
+
+class PallasCGOps(_DefaultOps):
+    """Reference-faithful CG stepA whose operator is the hand-written
+    stencil kernel of ``ops/kernels/cg_operator.py`` (one launch per CG
+    step on CUDA tensors).  Same CG semantics as the ``cg`` set."""
+
+    def cg_operator(self, r, reg_epsilon):
+        return lambda phi: cg_operator_blocked(phi, r, reg_epsilon)
 
 
 DEFAULT_OPS = _DefaultOps()
 
-_OPS = {"cg": _DefaultOps, "dct": DCTOps, "pallas": PallasOps}
+_OPS = {"cg": _DefaultOps, "dct": DCTOps, "pallas": PallasOps,
+        "dct-fused": DCTFusedOps, "cg-pallas": PallasCGOps}
 _LATER = {
     "dct-refined": "the refined spectral stepA is not ported yet (it waits "
                    "for the later slice that ports the dct fold/FFT/refined "
                    "routes)",
-    "dct-fused": "the dct-fused stepA needs the dct_solve kernel, which the "
-                 "next slice of the port brings",
-    "cg-pallas": "the cg-pallas stepA needs the CG operator kernels, which "
-                 "a later slice of the port brings",
 }
 
 

@@ -1,17 +1,17 @@
 """The port's CLI (``ofot_tpu_torch.cli.main``) on the CPU vs the JAX CLI.
 
-Both CLIs read the same small PGM pair and run the sweep's FOTO_ARGS
-(cli/pipeline.py:61-63) with Nt and max-it cut down, at --precision=f64.
-Tolerances: IE rtol 1e-4 and the .flo AEPE between the two outputs
-< 1e-3, the bounds tests/test_cli.py holds its own backends to, and the
-same ALG2 iteration count.
+Both CLIs read the same small PGM pair and run the sweep's FOTO_ARGS or
+WFR_ARGS (cli/pipeline.py:58-63) with Nt and max-it cut down, at
+--precision=f64.  Tolerances: IE rtol 1e-4 and the .flo AEPE between the
+two outputs < 1e-3, the bounds tests/test_cli.py holds its own backends to,
+and the same ALG2 iteration count.
 """
 
 import numpy as np
 import pytest
 
 from ofot_tpu.cli import main as jax_cli
-from ofot_tpu.cli.pipeline import FOTO_ARGS
+from ofot_tpu.cli.pipeline import FOTO_ARGS, WFR_ARGS
 from ofot_tpu_torch.cli import main as cli
 from ofot_tpu_torch.utils import flo, image
 
@@ -100,8 +100,14 @@ def test_cli_writes_all_foto_artifacts(frames, tmp_path, capsys):
     assert image.read_pgm(str(tmp_path / "rec.pgm")).shape == (20, 24)
     assert image.read_pgm(str(tmp_path / "lum.pgm")).shape == (20, 24)
     out = capsys.readouterr().out
-    # CPU tensors never launch the kernel
-    assert "kernel_launches=0" in out and "iterations=5" in out
+    # CPU tensors never launch a kernel
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("kernel_launches=")]
+    counts = dict(kv.split(":") for kv in line[0].split("=")[1].split(","))
+    assert set(counts) == {"fused_pointwise", "dct_solve",
+                           "project_paraboloid", "cg_operator",
+                           "cg_operator_blocked"}
+    assert set(counts.values()) == {"0"} and "iterations=5" in out
 
 
 def test_lambda_prefix_and_parser_surface():
@@ -118,7 +124,7 @@ def test_default_platform_is_cuda():
     assert cli.build_parser().parse_args(["a", "b"]).platform == "cuda"
 
 
-@pytest.mark.parametrize("algo", ["GN", "HS", "WFR", "sinkhorn", "bogus"])
+@pytest.mark.parametrize("algo", ["GN", "HS", "sinkhorn", "bogus"])
 def test_other_algos_exit_nonzero(frames, algo, capsys):
     assert cli.main(_argv(frames, f"--algo={algo}")) == 2
     err = capsys.readouterr().err
@@ -133,21 +139,89 @@ def test_jax_only_outputs_exit_nonzero(frames, flag, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("solver", ["dct-refined", "dct-fused", "cg-pallas"])
+@pytest.mark.parametrize("solver", ["dct-refined"])
 def test_later_stepA_solvers_exit_nonzero(frames, solver, capsys):
     assert cli.main(_argv(frames, "--algo=foto",
                           f"--stepA-solver={solver}")) == 2
     assert "slice" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("solver", ["auto", "pallas"])
+@pytest.mark.parametrize("algo", ["foto", "WFR"])
+@pytest.mark.parametrize("solver,twin", [("dct-fused", "dct"),
+                                         ("cg-pallas", "cg")])
+def test_kernel_stepA_sets_run_from_cli(frames, tmp_path, algo, solver,
+                                        twin):
+    """The dct-fused and cg-pallas sets run their plain versions on the CPU
+    and give the flow of the set they stand in for."""
+    for name in (twin, solver):
+        rc = cli.main(_argv(frames, f"--algo={algo}", "--Nt=4", "--max-it=6",
+                            "--reg-epsilon=1e-2", "--admm-alpha=1.7",
+                            f"--stepA-solver={name}",
+                            f"--out={tmp_path}/{name}.flo"))
+        assert rc == 0
+    assert _aepe(tmp_path / f"{twin}.flo", tmp_path / f"{solver}.flo") < 1e-3
+
+
+@pytest.mark.parametrize("solver", ["auto", "pallas", "dct-fused",
+                                    "cg-pallas"])
 def test_fused_kernel_set_rejects_f64_on_cuda(frames, solver, capsys):
-    """On cuda the pallas set runs the float32-only kernel: f64 exits 2
-    before any device is touched, so this holds with or without a card."""
+    """On cuda these sets run a float32-only kernel: f64 exits 2 before any
+    device is touched, so this holds with or without a card."""
     argv = [str(frames / "f0.pgm"), str(frames / "f1.pgm"), "--quiet",
             "--algo=foto", "--precision=f64", f"--stepA-solver={solver}"]
     assert cli.main(argv) == 2
     assert "float32" in capsys.readouterr().err
+
+
+def test_wfr_auto_rejects_f64_on_cuda(frames, capsys):
+    """WFR's auto is the pallas set on cuda (the fused kernel at 4
+    components), so f64 exits 2 there too."""
+    argv = [str(frames / "f0.pgm"), str(frames / "f1.pgm"), "--quiet",
+            "--algo=WFR", "--precision=f64"]
+    assert cli.main(argv) == 2
+    assert "float32" in capsys.readouterr().err
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+def test_wfr_cli_matches_jax_cli(frames, tmp_path, capsys):
+    """--algo=WFR at WFR_ARGS (Nt and max-it cut): the same iterations, IE
+    and flow as the JAX CLI, the combined luminosity in the m slot, and the
+    growth field written."""
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        rc = main(_argv(frames, *WFR_ARGS, *SMALL, "--precision=f64",
+                        f"--out={d}/flow.flo", f"--save-benchmark={d}/b.txt",
+                        f"--checkpoint={d}/state.npz",
+                        f"--save-lum={d}/lum.pgm",
+                        f"--save-growth={d}/growth.pgm"))
+        assert rc == 0
+        outs[name] = d
+    port, jax = outs["port"], outs["jax"]
+    np.testing.assert_allclose(_ie(port / "b.txt"), _ie(jax / "b.txt"),
+                               rtol=1e-4)
+    assert _aepe(port / "flow.flo", jax / "flow.flo") < 1e-3
+    with np.load(port / "state.npz") as a, np.load(jax / "state.npz") as b:
+        assert int(a["iteration"]) == int(b["iteration"]) > 1
+        assert a["mu"].shape[0] == b["mu"].shape[0] == 4
+    for img in ("lum.pgm", "growth.pgm"):
+        ours = image.read_pgm(str(port / img)).astype(int)
+        theirs = image.read_pgm(str(jax / img)).astype(int)
+        assert ours.shape == (20, 24)
+        # 8-bit quantization of fields that agree to ~1e-10
+        assert np.abs(ours - theirs).max() <= 1, img
+    out = capsys.readouterr().out
+    assert "algorithm: WFR" in out and "delta=2.5" in out
+
+
+def test_wfr_cli_prints_distance_and_created_mass(frames, capsys):
+    assert cli.main([str(frames / "f0.pgm"), str(frames / "f1.pgm"),
+                     "--platform=cpu", "--algo=WFR", "--Nt=4",
+                     "--max-it=3", "--reg-epsilon=1e-2"]) == 0
+    out = capsys.readouterr().out
+    assert "WFR(rho0, rhoT) = " in out and "created mass = " in out
+    assert "stepA_solver=dct" in out
 
 
 @pytest.mark.usefixtures("no_repo_cache")

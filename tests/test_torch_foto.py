@@ -281,7 +281,7 @@ def test_auto_resolves_per_device(device, want):
     assert foto.resolve_stepA_solver("dct", device) == "dct"
 
 
-@pytest.mark.parametrize("name", ["dct-refined", "dct-fused", "cg-pallas"])
+@pytest.mark.parametrize("name", ["dct-refined"])
 def test_later_slice_solvers_raise(name):
     with pytest.raises(ValueError, match="slice"):
         foto.stepA_ops(name)
@@ -295,5 +295,26 @@ def test_unknown_solver_raises():
 def test_ops_sets_are_fresh_and_only_pallas_fuses():
     assert foto.stepA_ops("dct") is not foto.stepA_ops("dct")
     assert getattr(foto.stepA_ops("pallas"), "fused_pointwise", None)
-    assert getattr(foto.stepA_ops("dct"), "fused_pointwise", None) is None
-    assert getattr(foto.stepA_ops("cg"), "fused_pointwise", None) is None
+    for name in ("cg", "dct", "dct-fused", "cg-pallas"):
+        assert getattr(foto.stepA_ops(name), "fused_pointwise", None) is None
+
+
+@pytest.mark.usefixtures("_interpret_mode")
+@pytest.mark.parametrize("name,jax_ops,cg_slack", [
+    ("dct-fused", jax_foto.DCTFusedOps(), 0),
+    ("cg-pallas", jax_foto.PallasCGOps(), 1)])
+def test_kernel_stepA_sets_iteration_from_jax_state(tmp_path, name, jax_ops,
+                                                    cg_slack):
+    """The sets that replaced the later-slice errors: one float64 iteration
+    from a JAX state against the JAX set of the same name (its Pallas
+    kernel in interpret mode), at the unfused sets' 1e-10."""
+    f1, f2 = _pair(np.float64)
+    st = _jax_state_after(2, f1, f2, admm_alpha=1.7)
+    ours = foto.alg2_iteration(
+        _carry(st, tmp_path), torch.from_numpy(f1), torch.from_numpy(f2),
+        ops=foto.stepA_ops(name), admm_alpha=1.7, **_ITER_KW)
+    theirs = jax_foto.alg2_iteration(
+        st, jnp.asarray(f1), jnp.asarray(f2), ops=jax_ops, admm_alpha=1.7,
+        **_ITER_KW)
+    _assert_state_close(ours, theirs, atol=1e-10, crit_rtol=1e-10,
+                        cg_slack=cg_slack)

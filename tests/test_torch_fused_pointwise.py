@@ -131,7 +131,43 @@ def test_build_command_is_plain_nvcc_for_sm90a():
     assert _build.NVCC_FLAGS[:2] == ("-gencode",
                                      "arch=compute_90a,code=sm_90a")
     assert "-shared" in _build.NVCC_FLAGS
-    assert [s.name for s in _build.sources()] == ["fused_pointwise.cu"]
+    assert [s.name for s in _build.sources()] == [
+        "cg_operator.cu", "dct_solve.cu", "fused_pointwise.cu",
+        "projection.cu"]
+    assert [h.name for h in _build.headers()] == ["paraboloid.cuh"]
     assert _build.BUILD_DIR.name == "_build"
-    src = (_build.SRC_DIR / "fused_pointwise.cu").read_text()
-    assert "torch/" not in src and 'extern "C"' in src
+    for path in _build.sources():
+        src = path.read_text()
+        assert "torch/" not in src and 'extern "C"' in src, path.name
+    # the fused pass and the standalone projection share one projection
+    for name in ("fused_pointwise.cu", "projection.cu"):
+        src = (_build.SRC_DIR / name).read_text()
+        assert '#include "paraboloid.cuh"' in src
+        assert "cbrtf" not in src, name
+
+
+@pytest.mark.parametrize("newer", ["library", "source", "header"])
+def test_library_is_stale_when_a_source_or_header_is_newer(
+        monkeypatch, tmp_path, newer):
+    """is_stale() compares the library with every csrc/*.cu and *.cuh:
+    editing a shared header rebuilds (no nvcc needed to check)."""
+    import os
+    src, build = tmp_path / "csrc", tmp_path / "_build"
+    src.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    files = {"source": src / "a.cu", "header": src / "shared.cuh",
+             "library": build / _build.LIB_NAME}
+    for i, key in enumerate(("source", "header", "library")):
+        files[key].write_text(key)
+        os.utime(files[key], (1000 + i, 1000 + i))
+    assert _build.is_stale() is False
+    if newer != "library":
+        os.utime(files[newer], (2000, 2000))
+    assert _build.is_stale() is (newer != "library")
+
+
+def test_missing_library_is_stale(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.is_stale() is True

@@ -48,6 +48,10 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.solvers.foto, ofot_tpu_torch.utils.image\n"
         "import ofot_tpu_torch.utils.checkpoint, ofot_tpu_torch.utils.warp\n"
         "import ofot_tpu_torch.ops.kernels.fused_pointwise\n"
+        "import ofot_tpu_torch.ops.kernels.dct_solve\n"
+        "import ofot_tpu_torch.ops.kernels.cg_operator\n"
+        "import ofot_tpu_torch.ops.kernels.projection\n"
+        "import ofot_tpu_torch.solvers.wfr\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"

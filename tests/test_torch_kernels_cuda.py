@@ -1,23 +1,33 @@
-"""The fused stepB/stepC/criterion CUDA kernel against its plain torch
-version, on the card (marker ``cuda``; skipped without one).
+"""The port's CUDA kernels against their plain torch versions, on the card
+(marker ``cuda``; skipped without one).
 
 This file imports neither JAX nor ``ofot_tpu``, so it runs where the card
 is, without the repository's conftest (which sets JAX up):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
-The kernel takes cbrtf/acosf where the plain version takes the Pallas
-kernel's exp/log and Newton forms, and nvcc fuses multiply-adds, so
-elementwise agreement is atol 2e-5 / rtol 1e-5 (a few hundred float32 ulps
-on O(1) values) and the criterion sums agree to rtol 1e-5 (the same
-float32 products summed in another order).
+Tolerances:
+  * the fused pass and the projection take cbrtf/acosf where the plain
+    versions take the Pallas kernels' exp/log and Newton forms, and nvcc
+    fuses multiply-adds, so elementwise agreement is atol 2e-5 / rtol 1e-5
+    (a few hundred float32 ulps on O(1) values); the criterion sums agree
+    to rtol 1e-5 (the same float32 products summed in another order);
+  * the stepA operator: 1e-5 absolute, the bound tests/test_pallas.py holds
+    the Pallas operator to (the same stencil, fused multiply-adds);
+  * the spectral solve: 5e-6 relative to max|phi|, tests/test_pallas.py's
+    bound for the Pallas solve (the same float32 products, summed in
+    another order, divided by eigenvalues down to r*eps).
+Every kernel's repeat launches are bitwise-equal (fixed summation orders).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ofot_tpu_torch.ops.kernels import cg_operator as cgk
+from ofot_tpu_torch.ops.kernels import dct_solve as ds
 from ofot_tpu_torch.ops.kernels import fused_pointwise as fp
+from ofot_tpu_torch.ops.kernels import projection as pk
 
 RNG = np.random.default_rng(37)
 
@@ -71,3 +81,66 @@ def test_kernel_rejects_bad_operands_on_card(cuda_device):
     with pytest.raises(ValueError):
         fp.fused_pointwise(torch.zeros(2, 4, device=cuda_device),
                            torch.zeros(2, 4, device=cuda_device), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncomp", [3, 4])
+def test_projection_matches_plain_version_on_card(cuda_device, ncomp):
+    p = torch.from_numpy(RNG.uniform(-4, 3, (ncomp, 5, 17, 23)).astype(
+        np.float32)).to(cuda_device)
+    before = pk.launches
+    got = pk.project_paraboloid(p)
+    again = pk.project_paraboloid(p)
+    torch.cuda.synchronize()
+    assert pk.launches == before + 2
+    torch.testing.assert_close(got, pk.project_paraboloid_reference(p),
+                               atol=2e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 17, 23), (4, 48, 40), (2, 2, 2)])
+def test_cg_operator_matches_plain_version_on_card(cuda_device, shape):
+    x = torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(
+        cuda_device)
+    before = (cgk.launches, cgk.blocked_launches)
+    a = cgk.cg_operator(x, 0.7, 1e-3)
+    b = cgk.cg_operator_blocked(x, 0.7, 1e-3)
+    torch.cuda.synchronize()
+    assert (cgk.launches, cgk.blocked_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = cgk.cg_operator_reference(x, 0.7, 1e-3)
+    assert float((a - want).abs().max()) < 1e-5
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 17, 23), (4, 65, 130), (3, 1, 70)])
+@pytest.mark.parametrize("r,eps", [(1.0, 1e-2), (0.3, 1e-3)])
+def test_dct_solve_matches_plain_version_on_card(cuda_device, shape, r,
+                                                 eps):
+    F = torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(
+        cuda_device)
+    before = ds.launches
+    got = ds.dct_solve(F, r, eps)
+    again = ds.dct_solve(F, r, eps)
+    torch.cuda.synchronize()
+    assert ds.launches == before + 2
+    want = ds.dct_solve_reference(F, r, eps)
+    assert float((got - want).abs().max() / want.abs().max()) < 5e-6
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_bad_operands_on_card(cuda_device):
+    x = torch.zeros(3, 4, 5, device=cuda_device)
+    with pytest.raises(TypeError):
+        cgk.cg_operator(x.double(), 1.0, 1e-2)
+    with pytest.raises(ValueError):
+        cgk.cg_operator(torch.zeros(1, 4, 5, device=cuda_device), 1.0, 1e-2)
+    with pytest.raises(ValueError):
+        cgk.cg_operator(x.transpose(1, 2), 1.0, 1e-2)
+    with pytest.raises(TypeError):
+        ds.dct_solve(x.double(), 1.0, 1e-2)
+    with pytest.raises(ValueError):
+        pk.project_paraboloid(torch.zeros(5, 4, device=cuda_device))
