@@ -11,7 +11,7 @@ Phases, each printed with its elapsed seconds:
 3. kernel vs plain: the fused stepB/stepC/criterion kernel against its
    plain torch version on the same CUDA tensors, at (3|4, 16, 240, 320),
    alpha 1 and 1.7, with repeat launches bitwise-equal in the criterion
-   sums; CUDA-event timings of both beside the kernel's bound;
+   sums; times of both beside the kernel's bound;
 4. main path: the port's CLI runs the sweep's FOTO solve (FOTO_ARGS,
    320x240, Nt=16, stepA auto -> the fused kernel) on a seeded textured
    pair, and must launch the kernel once per ALG2 iteration, reduce IE
@@ -22,9 +22,12 @@ Phases, each printed with its elapsed seconds:
    time by name, the device's busy share) and the CLI's solve again, warm;
 7. kernels vs plain: the spectral stepA kernel (dct_solve), the standalone
    projection and the stepA operator (both entry points) against their
-   plain torch versions, repeat launches bitwise-equal, with CUDA-event
-   timings beside each kernel's bound and, where one PyTorch call computes
-   the same function, that call's time;
+   plain torch versions at the sweep shape and at tile-edge shapes, repeat
+   launches bitwise-equal, with times beside each kernel's bound (for
+   dct_solve both the float32 bound and the bound of the TF32 tensor cores
+   its 3xTF32 design runs on) and, where one PyTorch call computes the
+   same function, that call's time; dct_solve and its float32 plain
+   version each against the float64 solve at the sweep shape, over seeds;
 8. paths: the CLI at 320x240 on the same pair, each path with every launch
    count set to 0 just before it and read just after: FOTO with
    ``--stepA-solver=dct-fused``, FOTO with ``cg-pallas`` (``--max-it`` cut),
@@ -35,6 +38,13 @@ Phases, each printed with its elapsed seconds:
 10. new-path profile: torch.profiler windows of the phase-8 paths (device
    busy share, kernel time by name) and warm solves, WFR ``auto`` and
    ``dct`` side by side.
+
+Kernel times (``ms``, ``plain_ms``, ``library_ms``) are CUDA-event times of
+back-to-back calls (``cuda_time_ms``), as every earlier run of this script
+took them.  The device time of the same calls (``device_time_ms``: the
+kernels' own run time on the card, from the profiler, without the gaps in
+which the card waits for the host) stands beside each under
+``device_ms``, ``plain_device_ms`` and ``library_device_ms``.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
@@ -101,9 +111,10 @@ DCT_RTOL, CG_ATOL = 5e-6, 1e-5
 CRIT_RTOL, PHI_RTOL = 1e-3, 1e-4
 
 # Memory bytes/s and float32 FLOP/s outside the tensor cores of the H100
-# SXM (NVIDIA's data sheet, dense rates, 700 W power limit)
+# SXM, and its dense TF32 tensor-core rate (NVIDIA's data sheet, 700 W
+# power limit)
 H100_SXM = "NVIDIA H100 80GB HBM3"
-MEM_BW, F32_RATE = 3.35e12, 67e12
+MEM_BW, F32_RATE, TF32_RATE = 3.35e12, 67e12, 495e12
 
 
 def _log(msg: str) -> None:
@@ -141,9 +152,10 @@ def card_rates(name: str):
 
 
 def cuda_time_ms(fn) -> float:
-    """Device time of one ``fn()``: the median over 20 samples of the mean
+    """Event time of one ``fn()``: the median over 20 samples of the mean
     of 10 back-to-back calls between two CUDA events, after 3 warm-up
-    calls."""
+    calls.  Where the host takes longer to enqueue a call than the card
+    to run it (kernels of a few microseconds), this measures the host."""
     for _ in range(3):
         fn()
     times = []
@@ -159,6 +171,29 @@ def cuda_time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def device_time_ms(fn, calls: int = 20, windows: int = 5) -> float:
+    """Device time of one ``fn()``: the run time of the kernels it launches
+    on the card (torch.profiler's CUDA activity), summed over ``calls``
+    back-to-back calls and divided by ``calls``; the median of ``windows``
+    windows, after 3 warm-up calls.  Gaps in which the card waits for the
+    host are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        times.append(us / 1e3 / calls)
+    return statistics.median(times)
+
+
 def bound(nbytes: float, ops: float, mem_bw: float, f32_rate: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the float32 rate."""
@@ -167,12 +202,25 @@ def bound(nbytes: float, ops: float, mem_bw: float, f32_rate: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _timing_line(label, ms, plain_ms, bound_ms, bound_by, nbytes, ops,
-                 extra=""):
-    _log(f"  {label} timing: kernel {ms:.4f} ms{extra}, plain "
-         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-         f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop), kernel at "
-         f"{100 * bound_ms / ms:.1f}% of bound")
+def _timing_line(label, rec, bound_ms, bound_by, nbytes, ops, extra=""):
+    ms, dev = rec["ms"], rec["device_ms"]
+    _log(f"  {label} timing: kernel {ms:.4f} ms by events, {dev:.4f} ms "
+         f"device{extra}; plain {rec['plain_ms']:.4f} ms by events, "
+         f"{rec['plain_device_ms']:.4f} ms device; bound {bound_ms:.4f} ms "
+         f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop), kernel "
+         f"at {100 * bound_ms / ms:.1f}% of bound by events, "
+         f"{100 * bound_ms / dev:.1f}% by device time")
+
+
+def time_kernel(enqueue, plain, library=None):
+    """Event and device times of a kernel's enqueue closure, of its plain
+    version and of the library call."""
+    return dict(ms=cuda_time_ms(enqueue), device_ms=device_time_ms(enqueue),
+                plain_ms=cuda_time_ms(plain),
+                plain_device_ms=device_time_ms(plain),
+                library_ms=None if library is None else cuda_time_ms(library),
+                library_device_ms=None if library is None
+                else device_time_ms(library))
 
 
 # ------------------------------------------------------- kernel vs plain
@@ -244,18 +292,17 @@ def check_kernel(device, mem_bw, f32_rate):
                     raise AssertionError(f"{case}: repeat launch changed "
                                          f"{name}")
             enqueue, _ = fp.prepare_launch(g, m, r, alpha, qp)
-            ms = cuda_time_ms(enqueue)
+            rec = time_kernel(enqueue, lambda: fp.fused_pointwise_reference(
+                g, m, r, alpha, qp))
             wrapper_ms = cuda_time_ms(lambda: fp.fused_pointwise(
                 g, m, r, alpha=alpha, q_prev=qp))
-            plain_ms = cuda_time_ms(lambda: fp.fused_pointwise_reference(
-                g, m, r, alpha, qp))
             bound_ms, bound_by, nbytes, ops = fused_pointwise_bound(
                 g, m, r, alpha, qp, mem_bw, f32_rate)
-            timings[(ncomp, alpha)] = dict(ms=ms, plain_ms=plain_ms,
-                                           bound_ms=bound_ms,
+            timings[(ncomp, alpha)] = dict(rec, bound_ms=bound_ms,
                                            bound_by=bound_by)
-            _timing_line(case, ms, plain_ms, bound_ms, bound_by, nbytes, ops,
-                         f" (through the wrapper {wrapper_ms:.4f} ms a call)")
+            _timing_line(case, rec, bound_ms, bound_by, nbytes, ops,
+                         f" (through the wrapper {wrapper_ms:.4f} ms a call "
+                         "by events)")
             del g, m, qp, got, again, want
     return worst, timings
 
@@ -269,11 +316,14 @@ def _random(shape, device, seed, low=None, high=None):
 
 def check_dct_solve(device, mem_bw, f32_rate):
     """Phase 7, kernel #2: the whole solve against its plain version at
-    two shapes and two (r, eps); the per-slice kernel timed alone through
+    three shapes and two (r, eps); the per-slice kernel timed alone through
     its enqueue closure, the plain slice body beside it, and the whole
-    dct-fused stepA beside the port's cuBLAS spectral stepA."""
+    dct-fused stepA beside the port's cuBLAS spectral stepA.  Its bound is
+    that of the units it runs on: three TF32 tensor-core products for each
+    float32 product (3xTF32); the float32 bound is printed and kept beside
+    it."""
     worst = 0.0
-    for shape in (SHAPE, (5, 17, 23)):
+    for shape in (SHAPE, (5, 17, 23), (3, 63, 129)):
         for r, eps in ((1.0, 1e-2), (0.3, 1e-3)):
             F = _random(shape, device, SEED + 1)
             got = ds.dct_solve(F, r, eps)
@@ -296,27 +346,77 @@ def check_dct_solve(device, mem_bw, f32_rate):
     p = ds.plan(SHAPE, F.dtype, F.device, r, eps)
     Fz = ds.t_forward(F, p)
     enqueue, _ = ds.prepare_launch(Fz, p)
-    ms = cuda_time_ms(enqueue)
-    plain_ms = cuda_time_ms(lambda: ds.slice_solve_reference(Fz, p))
     fused_ops, dct_ops = foto.stepA_ops("dct-fused"), foto.stepA_ops("dct")
-    stepA_ms = cuda_time_ms(lambda: fused_ops.stepA_solve(F, r, eps, 0, 0))
-    library_ms = cuda_time_ms(lambda: dct_ops.stepA_solve(F, r, eps, 0, 0))
+    rec = time_kernel(enqueue, lambda: ds.slice_solve_reference(Fz, p),
+                      lambda: dct_ops.stepA_solve(F, r, eps, 0, 0))
+
+    def stepA():
+        return fused_ops.stepA_solve(F, r, eps, 0, 0)
+
+    stepA_ms, stepA_device_ms = cuda_time_ms(stepA), device_time_ms(stepA)
     Nt, Ny, Nx = SHAPE
     n = Nt * Ny * Nx
     # four contractions of depth Ny, Nx, Ny, Nx, and 5 operations a point
-    # to assemble the divisor and divide; the slices in and out once, the
-    # two matrices and the eigenvalue vectors once
-    ops = 2 * n * (2 * Ny + 2 * Nx) + 5 * n
-    nbytes = 4 * (2 * n + Ny * Ny + Nx * Nx + Nt + Ny + Nx)
-    bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
-    _timing_line("dct_solve (16, 240, 320)", ms, plain_ms, bound_ms,
-                 bound_by, nbytes, ops,
-                 f" ({ops / ms / 1e9:.2f} TFLOP/s)")
+    # to assemble the divisor and divide
+    mm_ops = 2 * n * (2 * Ny + 2 * Nx)
+    ops = mm_ops + 5 * n
+    # the slices in and out once; Cy, CyT, Cx, CxT and the eigenvalues once
+    nbytes = 4 * (2 * n + 2 * Ny * Ny + 2 * Nx * Nx + Nt + Ny + Nx)
+    f32_bound_ms, _ = bound(nbytes, ops, mem_bw, f32_rate)
+    bound_ms = 1e3 * max(nbytes / mem_bw, 3 * mm_ops / TF32_RATE
+                         + 5 * n / f32_rate)
+    bound_by = "bytes" if nbytes / mem_bw >= 3 * mm_ops / TF32_RATE \
+        else "operations"
+    ms, dev = rec["ms"], rec["device_ms"]
+    _timing_line("dct_solve (16, 240, 320)", rec, bound_ms, bound_by, nbytes,
+                 3 * mm_ops + 5 * n,
+                 f" ({ops / dev / 1e9:.2f} float32 TFLOP/s by device time)")
+    _log(f"  dct_solve bounds: 3xTF32 on the tensor cores {bound_ms:.4f} ms "
+         f"(kernel at {100 * bound_ms / ms:.1f}% by events, "
+         f"{100 * bound_ms / dev:.1f}% by device time), float32 outside "
+         f"them {f32_bound_ms:.4f} ms (kernel at "
+         f"{100 * f32_bound_ms / ms:.1f}% by events, "
+         f"{100 * f32_bound_ms / dev:.1f}% by device time)")
     _log(f"  stepA solve: dct-fused (t products + kernel) {stepA_ms:.4f} "
-         f"ms, dct (six cuBLAS fp32 matmuls) {library_ms:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                stepA_ms=stepA_ms)
+         f"ms by events, {stepA_device_ms:.4f} ms device; dct (six cuBLAS "
+         f"fp32 matmuls) {rec['library_ms']:.4f} ms by events, "
+         f"{rec['library_device_ms']:.4f} ms device")
+    return dict(rec, max_abs_err=worst, bound_ms=bound_ms,
+                bound_by=bound_by, f32_bound_ms=f32_bound_ms,
+                stepA_ms=stepA_ms, stepA_device_ms=stepA_device_ms,
+                f64=check_dct_solve_f64(device))
+
+
+def check_dct_solve_f64(device, seeds: int = 4):
+    """Phase 7, kernel #2 against the float64 solve: at the sweep shape,
+    both (r, eps) and ``seeds`` seeds, the error of the kernel and that of
+    the float32 plain version, each relative to max|phi| of the float64
+    solve.  The kernel must stay within DCT_RTOL; both spreads are
+    printed and returned as {(r, eps): {"kernel": [...], "plain": [...]}}.
+    """
+    errs = {}
+    for r, eps in ((1.0, 1e-2), (0.3, 1e-3)):
+        errs[(r, eps)] = {"kernel": [], "plain": []}
+        for seed in range(seeds):
+            F = _random(SHAPE, device, SEED + 10 + seed)
+            exact = ds.dct_solve_reference(F.double(), r, eps)
+            scale = float(exact.abs().max())
+            for name, got in (("kernel", ds.dct_solve(F, r, eps)),
+                              ("plain", ds.dct_solve_reference(F, r, eps))):
+                errs[(r, eps)][name].append(
+                    float((got.double() - exact).abs().max()) / scale)
+        k, pl = errs[(r, eps)]["kernel"], errs[(r, eps)]["plain"]
+        _log(f"  dct_solve vs float64 r={r} eps={eps}, {seeds} seeds, / "
+             f"max|phi|: kernel {min(k):.3e}-{max(k):.3e} (median "
+             f"{statistics.median(k):.3e}), float32 plain "
+             f"{min(pl):.3e}-{max(pl):.3e} (median "
+             f"{statistics.median(pl):.3e}); kernel / plain "
+             f"{max(k) / max(pl):.2f} at the worst seed")
+        if not max(k) <= DCT_RTOL:
+            raise AssertionError(f"dct_solve r={r} eps={eps}: {max(k):.3e} "
+                                 f"of max|phi| off the float64 solve > "
+                                 f"{DCT_RTOL}")
+    return {f"r={r},eps={eps}": v for (r, eps), v in errs.items()}
 
 
 def check_projection(device, mem_bw, f32_rate):
@@ -338,8 +438,8 @@ def check_projection(device, mem_bw, f32_rate):
             raise AssertionError(f"project_paraboloid ncomp={ncomp}: "
                                  f"{bad} points off, or repeats differ")
         enqueue, _ = pk.prepare_launch(p)
-        ms = cuda_time_ms(enqueue)
-        plain_ms = cuda_time_ms(lambda: pk.project_paraboloid_reference(p))
+        rec = time_kernel(enqueue,
+                          lambda: pk.project_paraboloid_reference(p))
         k, L = ncomp - 1, p[0].numel()
         outside = int((2 * p[0] + (p[1:] ** 2).sum(0) > 0).sum())
         # per point 2k+2 for |b|^2 and the membership test; points outside
@@ -347,10 +447,9 @@ def check_projection(device, mem_bw, f32_rate):
         ops = L * (2 * k + 2) + 35 * outside
         nbytes = 2 * p.numel() * p.element_size()
         bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
-        _timing_line(f"project_paraboloid ncomp={ncomp}", ms, plain_ms,
-                     bound_ms, bound_by, nbytes, ops)
-        timings[ncomp] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
+        _timing_line(f"project_paraboloid ncomp={ncomp}", rec, bound_ms,
+                     bound_by, nbytes, ops)
+        timings[ncomp] = dict(rec, bound_ms=bound_ms, bound_by=bound_by)
     return worst, timings
 
 
@@ -378,7 +477,7 @@ def check_cg_operator(device, mem_bw, f32_rate):
     torch.backends.cudnn.allow_tf32 = False
     r, eps = 1.0, 1e-2
     worst, out = 0.0, {}
-    for shape in (SHAPE, (5, 17, 23)):
+    for shape in (SHAPE, (5, 17, 23), (17, 33, 131)):
         x = _random(shape, device, SEED + 3)
         want = cgk.cg_operator_reference(x, r, eps)
         for name, fn in (("cg_operator", cgk.cg_operator),
@@ -396,20 +495,19 @@ def check_cg_operator(device, mem_bw, f32_rate):
     conv_err = float((conv(x) - cgk.cg_operator_reference(x, r, eps)
                       ).abs().max())
     enqueue, _ = cgk.prepare_launch(x, r, eps)
-    ms = cuda_time_ms(enqueue)
-    plain_ms = cuda_time_ms(lambda: cgk.cg_operator_reference(x, r, eps))
-    library_ms = cuda_time_ms(lambda: conv(x))
+    rec = time_kernel(enqueue, lambda: cgk.cg_operator_reference(x, r, eps),
+                      lambda: conv(x))
     # per point: 3 axes x 3 (two adds, one multiply), 2 adds, 3 for the axpy
     ops = 14 * x.numel()
     nbytes = 2 * x.numel() * x.element_size()
     bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
-    _timing_line("cg_operator (16, 240, 320)", ms, plain_ms, bound_ms,
-                 bound_by, nbytes, ops)
-    _log(f"  library: replicate-padded conv3d {library_ms:.4f} ms (max "
-         f"|conv - plain| = {conv_err:.3e})")
+    _timing_line("cg_operator (16, 240, 320)", rec, bound_ms, bound_by,
+                 nbytes, ops)
+    _log(f"  library: replicate-padded conv3d {rec['library_ms']:.4f} ms by "
+         f"events, {rec['library_device_ms']:.4f} ms device (max |conv - "
+         f"plain| = {conv_err:.3e})")
     for name in ("cg_operator", "cg_operator_blocked"):
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms)
+        out[name] = dict(rec, bound_ms=bound_ms, bound_by=bound_by)
     return worst, out
 
 
@@ -727,34 +825,38 @@ def main() -> int:
     every_run = [solve, *paths.values()]
     t = timings[(3, ADMM_ALPHA)]
 
-    def entry(name, source, replaces, launches, err, rec, library_ms):
+    def entry(name, source, replaces, launches, err, rec):
         return {"name": name, "route": "cuda",
                 "source": f"ofot_tpu_torch/csrc/{source}",
                 "replaces": f"ofot_tpu/ops/pallas/kernels.py:{replaces}",
                 "launches": launches, "max_abs_err": err, "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": library_ms}
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "device_ms": rec["device_ms"],
+                "plain_device_ms": rec["plain_device_ms"],
+                "library_device_ms": rec["library_device_ms"]}
 
     record = {"kernels": [
         entry("fused_pointwise", "fused_pointwise.cu", 224,
-              solve["launches"]["fused_pointwise"], worst, t, None),
+              solve["launches"]["fused_pointwise"], worst, t),
         # the library call is the port's whole cuBLAS stepA, so the whole
         # dct-fused stepA (t products + kernel) stands beside it
         dict(entry("dct_solve", "dct_solve.cu", 355,
                    paths["foto-dct-fused"]["launches"]["dct_solve"],
-                   dct_rec["max_abs_err"], dct_rec, dct_rec["library_ms"]),
-             stepA_ms=dct_rec["stepA_ms"]),
+                   dct_rec["max_abs_err"], dct_rec),
+             stepA_ms=dct_rec["stepA_ms"],
+             stepA_device_ms=dct_rec["stepA_device_ms"],
+             f32_bound_ms=dct_rec["f32_bound_ms"],
+             err_vs_float64=dct_rec["f64"]),
         entry("project_paraboloid", "projection.cu", 130,
               sum(r["launches"]["project_paraboloid"] for r in every_run),
-              proj_err, proj[3], None),
+              proj_err, proj[3]),
         entry("cg_operator", "cg_operator.cu", 488,
               sum(r["launches"]["cg_operator"] for r in every_run),
-              cg_err, cg_recs["cg_operator"],
-              cg_recs["cg_operator"]["library_ms"]),
+              cg_err, cg_recs["cg_operator"]),
         entry("cg_operator_blocked", "cg_operator.cu", 528,
               paths["foto-cg-pallas"]["launches"]["cg_operator_blocked"],
-              cg_err, cg_recs["cg_operator_blocked"],
-              cg_recs["cg_operator_blocked"]["library_ms"]),
+              cg_err, cg_recs["cg_operator_blocked"]),
     ]}
     _log(f"chip_smoke wall {time.time() - t_start:.2f} s")
     _log(smi)

@@ -107,7 +107,9 @@ def load_library() -> ctypes.CDLL:
             vp, vp, c_int, c_int, c_int,      # x y Nt Ny Nx
             c_float, c_float, vp],            # r, r*eps, stream
         "ofot_dct_solve": [
-            vp, vp, vp, vp, vp, vp, vp, vp,   # Fz out tmp Cy Cx lt ly lx
+            vp, vp, vp,                       # Fz out tmp
+            vp, vp, vp, vp,                   # Cy CyT Cx CxT
+            vp, vp, vp,                       # lt ly lx
             c_int, c_int, c_int,              # Nt Ny Nx
             c_float, c_float, vp],            # r, r*eps, stream
     }

@@ -4,9 +4,11 @@ version.
 Counterpart of both TPU forms of the operator: ``cg_operator_pallas``
 (ofot_tpu/ops/pallas/kernels.py:495, body :488) and
 ``cg_operator_pallas_blocked`` (:589, body :528).  On the card one kernel
-(``ofot_tpu_torch/csrc/cg_operator.cu``, one thread per point) serves both
-entry points; the blocked form's zero-padded copy, 8-row halo and 8/128
-rounding are TPU tiling rules with no counterpart here.  CPU tensors run
+(``ofot_tpu_torch/csrc/cg_operator.cu``: four consecutive x points a
+thread from 16-byte loads where Nx % 4 == 0 and the field is 16-byte
+aligned, one point a thread otherwise) serves both entry points; the
+blocked form's zero-padded copy, 8-row halo and 8/128 rounding are TPU
+tiling rules with no counterpart here.  CPU tensors run
 ``cg_operator_reference``; any other device, dtype or layout raises.
 
 ``launches`` and ``blocked_launches`` count the kernel's launches through

@@ -14,7 +14,10 @@ layout raises.
 The transform matrices and the 1-D eigenvalue vectors are built once per
 ``(shape, dtype, device, r, eps)`` (:func:`plan`), as ``solvers/dct.py``'s
 ``StepAPlan`` is.  The divisor is assembled from the 1-D vectors at each
-use, as the JAX function does, so no (Nt, Ny, Nx) spectrum exists.
+use, as the JAX function does, so no (Nt, Ny, Nx) spectrum exists.  The
+plan also holds the contiguous transposes ``CyT`` and ``CxT``, so that the
+kernel's four contractions are plain row-major products; the kernel
+computes them at float32 accuracy on the tensor cores by 3xTF32.
 
 ``launches`` counts the kernel's launches in this process, one per solve
 (the wrapper's one call into the library, which runs the four contractions
@@ -35,6 +38,10 @@ from ofot_tpu_torch.solvers import dct
 launches = 0
 
 
+# The y/x matrices the kernel takes, in the order of its arguments.
+KERNEL_MATRICES = ("Cy", "CyT", "Cx", "CxT")
+
+
 class Plan(NamedTuple):
     """Everything of one stepA system that does not depend on F."""
     Ct: torch.Tensor    # (Nt, Nt) DCT-II analysis matrices (rows = freqs)
@@ -43,6 +50,8 @@ class Plan(NamedTuple):
     lt: torch.Tensor    # (Nt,) Neumann eigenvalues in DCT-II order
     ly: torch.Tensor    # (Ny,)
     lx: torch.Tensor    # (Nx,)
+    CyT: torch.Tensor   # contiguous Cy.T
+    CxT: torch.Tensor   # contiguous Cx.T
     r: float
     reg_epsilon: float
 
@@ -52,10 +61,12 @@ def plan(shape, dtype, device, r: float, reg_epsilon: float) -> Plan:
     """The matrices and eigenvalues of the system ``(-r L_st + r eps I)``
     on an (Nt, Ny, Nx) grid, built once per key."""
     device = torch.device(device)
-    mats = [dct._matrix(n, dtype, device) for n in shape]
+    Ct, Cy, Cx = (dct._matrix(n, dtype, device) for n in shape)
     eigs = [torch.as_tensor(dct._neumann_eigenvalues_np(n), dtype=dtype,
                             device=device) for n in shape]
-    return Plan(*mats, *eigs, r=float(r), reg_epsilon=float(reg_epsilon))
+    return Plan(Ct, Cy, Cx, *eigs, CyT=Cy.T.contiguous(),
+                CxT=Cx.T.contiguous(), r=float(r),
+                reg_epsilon=float(reg_epsilon))
 
 
 def _plan_for(F: torch.Tensor, r, reg_epsilon) -> Plan:
@@ -107,7 +118,7 @@ def prepare_launch(Fz: torch.Tensor, p: Plan):
     if Fz.dim() != 3 or Fz.numel() == 0 or Fz.shape[0] > 65535:
         raise ValueError("Fz must be a non-empty (Nt, Ny, Nx) field with "
                          f"Nt <= 65535, got shape {tuple(Fz.shape)}")
-    for name in ("Cy", "Cx", "lt", "ly", "lx"):
+    for name in (*KERNEL_MATRICES, "lt", "ly", "lx"):
         t = getattr(p, name)
         if t.device != Fz.device or t.dtype != torch.float32:
             raise ValueError(f"the plan's {name} is {t.dtype} on {t.device}, "
@@ -119,10 +130,10 @@ def prepare_launch(Fz: torch.Tensor, p: Plan):
     lib = _build.load_library()
     out = torch.empty_like(Fz)
     tmp = torch.empty_like(Fz)
-    args = (Fz.data_ptr(), out.data_ptr(), tmp.data_ptr(), p.Cy.data_ptr(),
-            p.Cx.data_ptr(), p.lt.data_ptr(), p.ly.data_ptr(),
-            p.lx.data_ptr(), Nt, Ny, Nx, p.r, p.r * p.reg_epsilon,
-            _build.stream_of(Fz))
+    args = (Fz.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            *(getattr(p, name).data_ptr() for name in KERNEL_MATRICES),
+            p.lt.data_ptr(), p.ly.data_ptr(), p.lx.data_ptr(), Nt, Ny, Nx,
+            p.r, p.r * p.reg_epsilon, _build.stream_of(Fz))
 
     def enqueue():
         _build.check_launch(lib, lib.ofot_dct_solve(*args), "dct_solve")
