@@ -37,7 +37,23 @@ Phases, each printed with its elapsed seconds:
 9. WFR card vs CPU: 20 fixed WFR iterations, as phase 5;
 10. new-path profile: torch.profiler windows of the phase-8 paths (device
    busy share, kernel time by name) and warm solves, WFR ``auto`` and
-   ``dct`` side by side.
+   ``dct`` side by side;
+11. gn/hs paths: the CLI at 320x240 on the same pair, with the launch
+   counts set to 0 just before each and read just after: GN at GN_ARGS,
+   GN with ``--pyramid-levels=4``, HS, and FOTO with
+   ``--stepA-solver=dct-refined``.  None launches a kernel; each must
+   report convergence (FOTO: end on the criterion before max-it), end
+   without NaN, write a 320x240 .flo and reduce IE below the identity
+   warp's;
+12. gn card vs cpu: GN ``solve_fields`` and one GN pyramid solve at
+   float32 on the card and on the CPU, CG steps and fields compared;
+   warm solves and profiler windows (device busy share, kernel time by
+   name) of the phase-11 paths.
+
+Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
+times it a second time cold, rotating over four input and output sets
+(118-157 MB), and states its share of the bound from the cold device
+time.  Kernel #1's smallest working set (59 MB) already exceeds L2.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are CUDA-event times of
 back-to-back calls (``cuda_time_ms``), as every earlier run of this script
@@ -53,6 +69,8 @@ not 0 and no result line is printed.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -71,7 +89,8 @@ from ofot_tpu_torch.ops.kernels import _build
 from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.ops.kernels import dct_solve as ds
 from ofot_tpu_torch.ops.kernels import projection as pk
-from ofot_tpu_torch.solvers import foto, wfr
+from ofot_tpu_torch.ops import operators
+from ofot_tpu_torch.solvers import dct, foto, gn, hs, pyramid, wfr
 from ofot_tpu_torch.utils import flo, image, metrics
 
 SEED = 0
@@ -82,6 +101,9 @@ FOTO_ARGS = ["--algo=foto", "--r=1", "--convergence-tol=0.01",
 WFR_ARGS = ["--algo=WFR", "--r=1", "--convergence-tol=0.01",
             "--reg-epsilon=1e-2", "--Nt=16", "--max-it=200",
             "--wfr-delta=2.5", "--admm-alpha=1.7"]  # pipeline.py:58-60
+GN_ARGS = ["--algo=GN", "--alpha=0.1", "--lambda=0.2"]  # pipeline.py:40
+HS_ARGS = ["--algo=HS", "--alpha=0.1"]
+PYRAMID_LEVELS = 4
 ADMM_ALPHA = 1.7
 WFR_DELTA = 2.5
 CARD_VS_CPU_ITERATIONS = 20
@@ -109,6 +131,15 @@ DCT_RTOL, CG_ATOL = 5e-6, 1e-5
 # max|phi| on phi) — the products and sums of each iteration round
 # differently on the two devices, and ADMM carries that forward.
 CRIT_RTOL, PHI_RTOL = 1e-3, 1e-4
+# GN card vs CPU, both float32, CG to rtol 1e-10: fields relative to their
+# max, CG steps per solve.  On this pair the float32 solve on the CPU lies
+# 5-7e-7 from the float64 one (single level) and up to 4.5e-6 (the pyramid's
+# m), and takes 2 more CG steps (65 against 63); the card differs from the
+# CPU only in summation order, so 1e-4 is ~20-150x what rounding gives.
+GN_FIELD_RTOL, GN_STEP_SLACK = 1e-4, 3
+# The card's L2 (H100 SXM: 50 MB); cold timings rotate over enough buffer
+# sets to pass it several times
+L2_BYTES = 50e6
 
 # Memory bytes/s and float32 FLOP/s outside the tensor cores of the H100
 # SXM, and its dense TF32 tensor-core rate (NVIDIA's data sheet, 700 W
@@ -449,8 +480,35 @@ def check_projection(device, mem_bw, f32_rate):
         bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
         _timing_line(f"project_paraboloid ncomp={ncomp}", rec, bound_ms,
                      bound_by, nbytes, ops)
-        timings[ncomp] = dict(rec, bound_ms=bound_ms, bound_by=bound_by)
+        cold = cold_times(lambda i: pk.prepare_launch(_random(
+            p.shape, device, SEED + 20 + i, -4.0, 3.0))[0], nbytes)
+        _log(f"  project_paraboloid ncomp={ncomp} cold: "
+             f"{cold['cold_ms']:.4f} ms by events, "
+             f"{cold['cold_device_ms']:.4f} ms device over "
+             f"{cold['cold_sets']} rotating sets; kernel at "
+             f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound by "
+             "cold device time")
+        timings[ncomp] = dict(rec, bound_ms=bound_ms, bound_by=bound_by,
+                              **cold)
     return worst, timings
+
+
+def cold_times(make_enqueue, nbytes):
+    """Event and device times of a kernel whose working set (``nbytes``)
+    fits in L2, measured cold: each call takes the next of enough input
+    and output sets (``make_enqueue(i)`` binds set i) that the data moved
+    between two uses of one set exceeds the L2 at least twice over."""
+    sets = max(4, int(3 * L2_BYTES // nbytes) + 1)
+    enqueues = [make_enqueue(i) for i in range(sets)]
+    turn = [0]
+
+    def fn():
+        enqueues[turn[0] % sets]()
+        turn[0] += 1
+
+    return dict(cold_ms=cuda_time_ms(fn),
+                cold_device_ms=device_time_ms(fn, calls=5 * sets),
+                cold_sets=sets)
 
 
 def _conv3d_operator(r, eps, device):
@@ -548,7 +606,6 @@ def run_cli_path(workdir: Path, label: str, args, expect):
     """The CLI on the pair with every launch count set to 0 just before and
     read just after; ``expect(iterations, cg_steps)`` gives the launches
     each kernel must show.  Returns the run's record."""
-    _, h, w = SHAPE
     p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
     d = workdir / label
     d.mkdir()
@@ -563,34 +620,47 @@ def run_cli_path(workdir: Path, label: str, args, expect):
     with np.load(state) as z:
         iterations, crit = int(z["iteration"]), float(z["crit"])
         cg_steps = int(z["cg_iterations"])
-    lines = dict(ln.split(": ", 1) for ln in bench.read_text().splitlines())
-    ie, solve_s = float(lines["IE"]), float(lines["time"].rstrip("s"))
-    g0, _, _ = image.open_grayscale(str(p0))
-    g1, _, _ = image.open_grayscale(str(p1))
-    ie_identity = metrics.IE(w, h, g0, g1)
-    fw, fh, u, v = flo.read_flo(str(out))
+    ie, solve_s, ie_identity = check_cli_outputs(workdir, label, d)
     _log(f"  {label}: iterations={iterations} cg_steps={cg_steps} "
          f"crit={crit:.6g} launches={launches} solve_s={solve_s:.4f} "
          f"ms_per_alg2_iteration={1e3 * solve_s / max(iterations, 1):.4f} "
          f"IE={ie:.6g} IE_identity={ie_identity:.6g}")
     if not iterations > 0:
         raise AssertionError(f"{label}: no ALG2 iteration ran")
+    check_launches(label, launches, expect(iterations, cg_steps))
+    if not np.isfinite(crit):
+        raise AssertionError(f"{label}: the solve ended on a NaN criterion")
+    return dict(iterations=iterations, cg_steps=cg_steps, crit=crit,
+                launches=launches, solve_s=solve_s, ie=ie,
+                ie_identity=ie_identity)
+
+
+def check_launches(label, launches, expect):
     want = {k: 0 for k in kernels.KERNELS}
-    want.update(expect(iterations, cg_steps))
+    want.update(expect)
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, "
                              f"expected {want}")
-    if not np.isfinite(crit):
-        raise AssertionError(f"{label}: the solve ended on a NaN criterion")
+
+
+def check_cli_outputs(workdir: Path, label: str, d: Path):
+    """IE below the identity warp's and a finite 320x240 .flo; returns
+    (IE, solve seconds, identity IE)."""
+    _, h, w = SHAPE
+    lines = dict(ln.split(": ", 1) for ln in
+                 (d / "bench.txt").read_text().splitlines())
+    ie, solve_s = float(lines["IE"]), float(lines["time"].rstrip("s"))
+    g0, _, _ = image.open_grayscale(str(workdir / "f0.pgm"))
+    g1, _, _ = image.open_grayscale(str(workdir / "f1.pgm"))
+    ie_identity = metrics.IE(w, h, g0, g1)
+    fw, fh, u, v = flo.read_flo(str(d / "flow.flo"))
     if not (np.isfinite(ie) and ie < ie_identity):
         raise AssertionError(f"{label}: IE {ie} not below the identity "
                              f"warp's {ie_identity}")
     if (fw, fh) != (w, h) or not (np.isfinite(u).all()
                                   and np.isfinite(v).all()):
         raise AssertionError(f"{label}: .flo is {fw}x{fh} or not finite")
-    return dict(iterations=iterations, cg_steps=cg_steps, crit=crit,
-                launches=launches, solve_s=solve_s, ie=ie,
-                ie_identity=ie_identity)
+    return ie, solve_s, ie_identity
 
 
 def run_main_path(workdir: Path):
@@ -646,9 +716,11 @@ def card_vs_cpu(rho, history=_foto_history):
     return crit_dev, phi_dev
 
 
-def profile_window(label: str, run, n: int, top: int = 15):
+def profile_window(label: str, run, n: int, top: int = 15,
+                   unit: str = "ALG2 iterations"):
     """Kernel time by name over ``run(n)`` on the card, and the device's
-    busy share of the window's wall time."""
+    busy share of the window's wall time; per-``unit`` figures divide by
+    ``n``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -662,7 +734,7 @@ def profile_window(label: str, run, n: int, top: int = 15):
     device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in device)
-    _log(f"  {label} window: {n} ALG2 iterations, wall "
+    _log(f"  {label} window: {n} {unit}, wall "
          f"{wall_us / 1e3:.3f} ms ({wall_us / 1e3 / n:.3f} ms each), device "
          f"busy {busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% "
          f"(idle {100 - 100 * busy_us / wall_us:.1f}%), "
@@ -670,7 +742,7 @@ def profile_window(label: str, run, n: int, top: int = 15):
     for e in device[:top]:
         _log(f"  {e.self_device_time_total / n:9.1f} us/iter "
              f"{e.count // n:4d}x  {e.key[:90]}")
-    return events
+    return events, busy_us / 1e3
 
 
 def profile_alg2(rho):
@@ -684,7 +756,7 @@ def profile_alg2(rho):
     kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA,
               ops=foto.stepA_ops("pallas"))
     foto.solve_potential_with_history(a, b, SHAPE[0], 2, **kw)
-    events = profile_window("foto pallas", lambda k: (
+    events, _ = profile_window("foto pallas", lambda k: (
         foto.solve_potential_with_history(a, b, SHAPE[0], k, **kw)), n)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
@@ -764,6 +836,191 @@ def profile_paths(rho):
              f"crit {float(res.state.crit):.6g}")
 
 
+# ------------------------------------------------------ GN, HS, pyramid
+
+def run_variational_path(workdir: Path, label: str, args):
+    """Phase 11: a GN or HS path through the CLI, the launch counts set to
+    0 just before and read just after; the CLI's ``solver:`` line gives the
+    CG steps and convergence."""
+    p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
+    d = workdir / label
+    d.mkdir()
+    argv = [str(p0), str(p1), *args, f"--out={d / 'flow.flo'}",
+            f"--save-benchmark={d / 'bench.txt'}", "--quiet"]
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{label}: CLI exited with {rc}")
+    line = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith("solver: ")][0]
+    stats = dict(kv.split("=") for kv in line[len("solver: "):].split())
+    ie, solve_s, ie_identity = check_cli_outputs(workdir, label, d)
+    steps = int(stats["inner_iterations"])
+    _log(f"  {label}: {line} launches={launches} solve_s={solve_s:.4f} "
+         f"ms_per_cg_step={1e3 * solve_s / max(steps, 1):.4f} IE={ie:.6g} "
+         f"IE_identity={ie_identity:.6g}")
+    check_launches(label, launches, {})
+    if stats["converged"] != "True":
+        raise AssertionError(f"{label}: CG did not converge ({line})")
+    return dict(cg_steps=steps, solve_s=solve_s, ie=ie, launches=launches,
+                ie_identity=ie_identity)
+
+
+def run_gn_hs_paths(workdir: Path):
+    """Phase 11: GN, GN pyramid, HS and FOTO dct-refined through the CLI;
+    none launches a kernel."""
+    paths = {
+        "gn": run_variational_path(workdir, "gn", GN_ARGS),
+        "gn-pyramid": run_variational_path(
+            workdir, "gn-pyramid",
+            [*GN_ARGS, f"--pyramid-levels={PYRAMID_LEVELS}"]),
+        "hs": run_variational_path(workdir, "hs", HS_ARGS),
+        "foto-dct-refined": run_cli_path(
+            workdir, "foto-dct-refined",
+            [*FOTO_ARGS, "--stepA-solver=dct-refined"], lambda it, cg: {}),
+    }
+    refined = paths["foto-dct-refined"]
+    max_it = int([a for a in FOTO_ARGS if a.startswith("--max-it")][0]
+                 .split("=")[1])
+    if not refined["iterations"] < max_it:
+        raise AssertionError(f"foto-dct-refined ran to max-it {max_it} "
+                             f"(crit {refined['crit']}) instead of ending on "
+                             "the criterion")
+    if refined["cg_steps"] != 4 * refined["iterations"]:
+        raise AssertionError("foto-dct-refined: inner iterations are not "
+                             "1 + refine = 4 per ALG2 iteration")
+    return paths
+
+
+def _relative_gaps(card, cpu, names):
+    return {k: float((a.cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max())
+            for k, a, b in zip(names, card, cpu)}
+
+
+def gn_card_vs_cpu(rho):
+    """Phase 12: GN solve_fields and one GN pyramid solve at float32 on
+    the card and on the CPU: CG steps within GN_STEP_SLACK a solve, fields
+    within GN_FIELD_RTOL of their max."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in rho)
+        t0 = time.time()
+        single = gn.solve_fields(a, b)
+        single.u.cpu()
+        t1 = time.time()
+        log = []
+        pyr = pyramid.solve_gn_pyramid(a, b, levels=PYRAMID_LEVELS,
+                                       cg_log=log)
+        pyr[0].cpu()
+        t2 = time.time()
+        _log(f"  {dev}: GN {single.cg.iterations} CG steps in {t1 - t0:.4f} "
+             f"s (converged {single.cg.converged}); pyramid CG steps "
+             f"{[r.iterations for r in log]} in {t2 - t1:.4f} s")
+        runs[dev] = (single, pyr, log)
+    (s0, p0, l0), (s1, p1, l1) = runs["cuda"], runs["cpu"]
+    gaps = _relative_gaps((s0.u, s0.v, s0.m), (s1.u, s1.v, s1.m), "uvm")
+    pgaps = _relative_gaps(p0, p1, "uvm")
+    steps = [(s0.cg.iterations, s1.cg.iterations)] + [
+        (a.iterations, b.iterations) for a, b in zip(l0, l1)]
+    _log(f"  max |card - cpu| / max|cpu|: GN {gaps}, pyramid {pgaps} (tol "
+         f"{GN_FIELD_RTOL}); CG steps card/cpu {steps} (slack "
+         f"{GN_STEP_SLACK})")
+    if not (s0.cg.converged and s1.cg.converged):
+        raise AssertionError("GN did not converge on both devices")
+    if len(l0) != len(l1) or not all(r.converged for r in l0 + l1):
+        raise AssertionError("a pyramid level did not converge")
+    if any(abs(a - b) > GN_STEP_SLACK for a, b in steps):
+        raise AssertionError(f"CG step counts differ: {steps}")
+    if not max(*gaps.values(), *pgaps.values()) <= GN_FIELD_RTOL:
+        raise AssertionError("card and CPU GN fields disagree")
+    return dict(single=gaps, pyramid=pgaps, steps=steps)
+
+
+def _gn_solve(a, b):
+    r = gn.solve_fields(a, b)
+    return [r.cg], r.u
+
+
+def _gn_pyramid_solve(a, b):
+    log = []
+    u, _, _ = pyramid.solve_gn_pyramid(a, b, levels=PYRAMID_LEVELS,
+                                       cg_log=log)
+    return log, u
+
+
+def _hs_solve(a, b):
+    r = hs.solve_fields(a, b)
+    return [r.cg], r.u
+
+
+def profile_gn_hs_paths(rho):
+    """Phase 12: warm solves and profiler windows of the phase-11 paths:
+    one GN, GN pyramid and HS solve, and 10 FOTO dct-refined iterations."""
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+            for x in rho)
+    for label, solve in (("gn", _gn_solve), ("gn-pyramid", _gn_pyramid_solve),
+                         ("hs", _hs_solve)):
+        solve(a, b)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cgs, u = solve(a, b)
+        u.cpu()
+        el = time.time() - t0
+        steps = sum(r.iterations for r in cgs)
+        _log(f"  warm {label}: {steps} CG steps in {el:.4f} s "
+             f"({1e3 * el / steps:.4f} ms each)")
+        _, busy_ms = profile_window(label, lambda n: solve(a, b), 1, top=10,
+                                    unit="solve")
+        _log(f"  {label}: device {busy_ms / steps:.4f} ms per CG step")
+    ops = foto.stepA_ops("dct-refined")
+    kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA, ops=ops)
+    foto.solve_potential_with_history(a, b, SHAPE[0], 1, **kw)
+    profile_window("foto dct-refined", lambda m: (
+        foto.solve_potential_with_history(a, b, SHAPE[0], m, **kw)),
+        PROFILE_ITERATIONS, top=10)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = foto.solve(a, b, SHAPE[0], convergence_tol=0.01, max_it=200, **kw)
+    res.u.cpu()
+    el = time.time() - t0
+    _log(f"  warm foto dct-refined: {res.state.iteration} iterations in "
+         f"{el:.4f} s ({1e3 * el / res.state.iteration:.4f} ms each), crit "
+         f"{float(res.state.crit):.6g}")
+    refined_vs_exact(a, b)
+
+
+def refined_vs_exact(a, b):
+    """The refined stepA on one ALG2 right-hand side: its error against the
+    float64 solve by refine steps, beside the exact float32 solve's, and
+    its device time beside the exact solve's.  Refine 3 must be within
+    DCT_RTOL of the float64 solve, and the TF32 setting off again."""
+    F = operators.div_st(foto.init_state(a, b, SHAPE[0]).mu, bc="N")
+    plan = dct.StepAPlan(F.shape, 1.0, 1e-2, F.dtype, F.device)
+    exact64 = dct.solve_stepA_dct(F.double(), 1.0, 1e-2)
+    scale = float(exact64.abs().max())
+    errs = {}
+    for refine in range(4):
+        got = plan.solve_refined(F, refine)
+        errs[refine] = float((got.double() - exact64).abs().max()) / scale
+    fp32 = float((plan.solve(F).double() - exact64).abs().max()) / scale
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 left on after a refined solve")
+    refined_ms = device_time_ms(lambda: plan.solve_refined(F, 3))
+    exact_ms = device_time_ms(lambda: plan.solve(F))
+    _log(f"  refined stepA vs float64 / max|phi|: "
+         + ", ".join(f"refine {k} {v:.3e}" for k, v in errs.items())
+         + f"; exact float32 {fp32:.3e}; device {refined_ms:.4f} ms "
+         f"(refine 3) against {exact_ms:.4f} ms (exact)")
+    if not errs[3] <= DCT_RTOL:
+        raise AssertionError(f"refined stepA (refine 3) {errs[3]:.3e} of "
+                             f"max|phi| off the float64 solve > {DCT_RTOL}")
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -820,6 +1077,13 @@ def main() -> int:
         with Phase("10 new-path profile"):
             profile_paths(rho)
 
+        with Phase("11 gn/hs paths"):
+            paths.update(run_gn_hs_paths(workdir))
+
+        with Phase("12 gn card vs cpu"):
+            gn_card_vs_cpu(rho)
+            profile_gn_hs_paths(rho)
+
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path
     every_run = [solve, *paths.values()]
@@ -848,9 +1112,11 @@ def main() -> int:
              stepA_device_ms=dct_rec["stepA_device_ms"],
              f32_bound_ms=dct_rec["f32_bound_ms"],
              err_vs_float64=dct_rec["f64"]),
-        entry("project_paraboloid", "projection.cu", 130,
-              sum(r["launches"]["project_paraboloid"] for r in every_run),
-              proj_err, proj[3]),
+        dict(entry("project_paraboloid", "projection.cu", 130,
+                   sum(r["launches"]["project_paraboloid"]
+                       for r in every_run), proj_err, proj[3]),
+             cold_ms=proj[3]["cold_ms"],
+             cold_device_ms=proj[3]["cold_device_ms"]),
         entry("cg_operator", "cg_operator.cu", 488,
               sum(r["launches"]["cg_operator"] for r in every_run),
               cg_err, cg_recs["cg_operator"]),

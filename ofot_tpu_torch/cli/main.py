@@ -1,4 +1,4 @@
-"""CLI entry point of the PyTorch/CUDA port — the FOTO and WFR branches.
+"""CLI entry point of the PyTorch/CUDA port.
 
 The parser is ``ofot_tpu.cli.main.build_parser()``'s, so run scripts
 written for the reference or the JAX package work unchanged, including
@@ -7,11 +7,20 @@ written for the reference or the JAX package work unchanged, including
 (default) or ``cpu``; without a card, ``cuda`` raises instead of falling
 back.
 
-The port runs ``--algo=foto`` and ``--algo=WFR`` with the stepA solvers
-``cg``, ``dct``, ``pallas``, ``dct-fused``, ``cg-pallas`` and ``auto``.
-Other algorithms, ``dct-refined`` and the JAX-only outputs exit with code
-2 and name the slice that brings them.  After the solve the CLI prints the
-launches of every CUDA kernel on one ``kernel_launches=`` line.
+The port runs:
+
+  * ``--algo=foto`` and ``--algo=WFR`` with every stepA solver (``cg``,
+    ``dct``, ``dct-refined``, ``pallas``, ``dct-fused``, ``cg-pallas`` and
+    ``auto``), ``--checkpoint`` and ``--resume``;
+  * ``--algo=GN`` and ``--algo=HS`` (m = 0), each single-level or
+    coarse-to-fine with ``--pyramid-levels > 1``.  They run no CUDA kernel,
+    so ``--precision=f64`` works on cuda too.
+
+``--algo=sinkhorn`` and the JAX-only outputs (``--profile``,
+``--log-jsonl``, ``--save-flow-viz``, ``--save-density-frames``) exit
+with code 2 and name the slice that brings them.  After the solve the CLI
+prints a ``solver:`` line and the launches of every CUDA kernel on one
+``kernel_launches=`` line.
 
 Usage:  python -m ofot_tpu_torch.cli.main f0.pgm f1.pgm --algo=foto --Nt=16 ...
 """
@@ -75,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="stepA backend: cg = reference-faithful "
                         "iterative solve; dct = exact spectral solve; "
-                        "pallas = dct + the fused stepB/stepC/criterion "
+                        "dct-refined = TF32 spectral solve (on cuda) + 3 "
+                        "steps of fp32 iterative refinement; pallas = dct + the fused stepB/stepC/criterion "
                         "CUDA kernel; dct-fused = dct with the per-slice "
                         "transforms in a CUDA kernel; cg-pallas = cg with "
                         "the operator in a CUDA kernel; auto (default) = "
@@ -117,9 +127,7 @@ _NOT_PORTED_FLAGS = {
     "save_density_frames": "--save-density-frames (the trace/logging "
                            "slice of the port)",
 }
-_LATER_ALGOS = {"GN": "the GN/HS/pyramid slice",
-                "HS": "the GN/HS/pyramid slice",
-                "sinkhorn": "the Sinkhorn slice"}
+_LATER_ALGOS = {"sinkhorn": "the Sinkhorn slice"}
 # stepA sets that run a float32-only CUDA kernel on cuda
 _FLOAT32_KERNEL_SETS = ("pallas", "dct-fused", "cg-pallas")
 
@@ -132,6 +140,112 @@ def _device(platform: str) -> torch.device:
     return torch.device(platform)
 
 
+def _print_launches(kernels, before) -> None:
+    launched = kernels.launch_counts()
+    print("kernel_launches=" + ",".join(
+        f"{k}:{launched[k] - before[k]}" for k in launched))
+
+
+def _print_header(args) -> None:
+    names = {"foto": "FOTO", "WFR": "WFR (unbalanced optimal transport)"}
+    print(f" - algorithm: {names.get(args.algo, args.algo)}")
+    if args.algo in ("GN", "HS"):
+        print(f"\t - alpha={args.alpha}")
+        if args.algo == "GN":
+            print(f"\t - lambda={args.lambdaa}")
+        if args.pyramid_levels > 1:
+            print(f"\t - pyramid_levels={args.pyramid_levels}")
+        return
+    print(f"\t - Nt={args.Nt}")
+    print(f"\t - r={args.r}")
+    if args.algo == "WFR":
+        print(f"\t - delta={args.wfr_delta}")
+    print(f"\t - convergence_tol={args.convergence_tol}")
+    print(f"\t - reg_epsilon={args.reg_epsilon}")
+    print(f"\t - max_it={args.max_it}")
+
+
+def _solve_ot(args, rho1_d, rho2_d, ops):
+    """The FOTO and WFR solves -> (result, m): the luminosity slot of WFR
+    composes the growth the source term modelled with the advective
+    dilution correction -div(u, v)."""
+    from ofot_tpu_torch.solvers import foto, wfr
+    from ofot_tpu_torch.utils import checkpoint
+
+    init = (checkpoint.load_state(args.resume, rho1_d.device, rho1_d.dtype)
+            if args.resume else None)
+    common = dict(r=args.r, convergence_tol=args.convergence_tol,
+                  reg_epsilon=args.reg_epsilon, max_it=args.max_it,
+                  verbose=not args.quiet, init=init, ops=ops,
+                  admm_alpha=args.admm_alpha, auto_r=args.auto_r)
+    if args.algo == "foto":
+        result = foto.solve(rho1_d, rho2_d, args.Nt, **common)
+        return result, result.m
+    result = wfr.solve(rho1_d, rho2_d, args.Nt, delta=args.wfr_delta,
+                       **common)
+    return result, result.m_combined
+
+
+def _report_ot(args, result, solver, w, h) -> None:
+    """After the timed solve: the solver line, W2 or the WFR distance, the
+    checkpoint and the growth field."""
+    from ofot_tpu_torch.solvers import foto, wfr
+    from ofot_tpu_torch.utils import checkpoint, image
+
+    state = result.state
+    print(f"solver: iterations={state.iteration} "
+          f"inner_iterations={state.cg_iterations} "
+          f"crit={float(state.crit)} stepA_solver={solver}")
+    if not args.quiet and args.algo == "foto":
+        w2 = float(foto.wasserstein2(state))
+        print(f"W2(rho0, rhoT) = {w2:.6g} px")
+    elif not args.quiet:
+        dist = float(wfr.wfr_distance(state))
+        created = float(wfr.total_created_mass(state, args.wfr_delta))
+        print(f"WFR(rho0, rhoT) = {dist:.6g} px, "
+              f"created mass = {created:.6g}")
+    if args.checkpoint:
+        checkpoint.save_state(args.checkpoint, state)
+    if args.algo == "WFR" and args.save_growth:
+        growth = result.growth.cpu().numpy()
+        image.save_grayscale(np.clip((growth + 1) / 2, 0, 1).reshape(h, w),
+                             args.save_growth)
+
+
+def _solve_variational(args, rho1_d, rho2_d):
+    """The GN and HS solves -> (u, v, m, solver line); m = 0 for HS.  With
+    ``--pyramid-levels > 1`` the coarse-to-fine solve: the linearized
+    solvers only capture a few px of motion, so the pyramid solves
+    residual flows at halved scales (for GN, m is solved at the finest
+    level around the final warp)."""
+    from ofot_tpu_torch.solvers import gn, hs, pyramid
+
+    if args.pyramid_levels > 1:
+        steps = []
+        if args.algo == "GN":
+            u, v, m = pyramid.solve_gn_pyramid(
+                rho1_d, rho2_d, args.alpha, args.lambdaa,
+                levels=args.pyramid_levels, cg_log=steps)
+        else:
+            u, v = pyramid.solve_hs_pyramid(
+                rho1_d, rho2_d, args.alpha, levels=args.pyramid_levels,
+                cg_log=steps)
+            m = torch.zeros_like(u)
+        return u, v, m, (
+            f"pyramid_levels={args.pyramid_levels} "
+            f"inner_iterations={sum(r.iterations for r in steps)} "
+            f"converged={all(r.converged for r in steps)}")
+    if args.algo == "GN":
+        res = gn.solve_fields(rho1_d, rho2_d, args.alpha, args.lambdaa)
+        m = res.m
+    else:
+        res = hs.solve_fields(rho1_d, rho2_d, args.alpha)
+        m = torch.zeros_like(res.u)
+    return res.u, res.v, m, (
+        f"inner_iterations={res.cg.iterations} "
+        f"residual={float(res.cg.residual)} converged={res.cg.converged}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -139,7 +253,7 @@ def main(argv=None) -> int:
         if getattr(args, attr):
             print(f"ERROR: {what} is not ported yet", file=sys.stderr)
             return 2
-    if args.algo not in ("foto", "WFR"):
+    if args.algo not in ("foto", "WFR", "GN", "HS"):
         later = _LATER_ALGOS.get(args.algo)
         if later is None:
             print(f"ERROR: unknown --algo '{args.algo}' (expected foto, GN, "
@@ -151,22 +265,20 @@ def main(argv=None) -> int:
 
     from ofot_tpu_torch.ops import kernels
     from ofot_tpu_torch.solvers import foto, wfr
-    from ofot_tpu_torch.utils import checkpoint, flo, image, metrics, warp
+    from ofot_tpu_torch.utils import flo, image, metrics, warp
 
-    resolve = (foto.resolve_stepA_solver if args.algo == "foto"
-               else wfr.resolve_stepA_solver)
-    solver = resolve(args.stepA_solver, args.platform)
-    try:
+    ot = args.algo in ("foto", "WFR")
+    if ot:
+        resolve = (foto.resolve_stepA_solver if args.algo == "foto"
+                   else wfr.resolve_stepA_solver)
+        solver = resolve(args.stepA_solver, args.platform)
         ops = foto.stepA_ops(solver)
-    except ValueError as e:
-        print(f"ERROR: {e}", file=sys.stderr)
-        return 2
-    if solver in _FLOAT32_KERNEL_SETS and args.platform == "cuda" \
-            and args.precision == "f64":
-        print(f"ERROR: the {solver} stepA set runs a CUDA kernel that is "
-              "float32 only; use --precision=f32, another --stepA-solver, "
-              "or --platform=cpu", file=sys.stderr)
-        return 2
+        if solver in _FLOAT32_KERNEL_SETS and args.platform == "cuda" \
+                and args.precision == "f64":
+            print(f"ERROR: the {solver} stepA set runs a CUDA kernel that "
+                  "is float32 only; use --precision=f32, another "
+                  "--stepA-solver, or --platform=cpu", file=sys.stderr)
+            return 2
 
     device = _device(args.platform)
     dtype = torch.float64 if args.precision == "f64" else torch.float32
@@ -188,59 +300,21 @@ def main(argv=None) -> int:
     rho1_d = torch.as_tensor(rho1, dtype=dtype, device=device)
     rho2_d = torch.as_tensor(rho2, dtype=dtype, device=device)
 
-    if args.algo == "foto":
-        print(" - algorithm: FOTO")
-    else:
-        print(" - algorithm: WFR (unbalanced optimal transport)")
-    print(f"\t - Nt={args.Nt}")
-    print(f"\t - r={args.r}")
-    if args.algo == "WFR":
-        print(f"\t - delta={args.wfr_delta}")
-    print(f"\t - convergence_tol={args.convergence_tol}")
-    print(f"\t - reg_epsilon={args.reg_epsilon}")
-    print(f"\t - max_it={args.max_it}")
-    init = (checkpoint.load_state(args.resume, device, dtype)
-            if args.resume else None)
-
+    _print_header(args)
     launches_before = kernels.launch_counts()
-    common = dict(r=args.r, convergence_tol=args.convergence_tol,
-                  reg_epsilon=args.reg_epsilon, max_it=args.max_it,
-                  verbose=not args.quiet, init=init, ops=ops,
-                  admm_alpha=args.admm_alpha, auto_r=args.auto_r)
     start_time = time.time()
-    if args.algo == "foto":
-        result = foto.solve(rho1_d, rho2_d, args.Nt, **common)
-        m_d = result.m
+    if ot:
+        result, m_d = _solve_ot(args, rho1_d, rho2_d, ops)
+        u_d, v_d = result.u, result.v
     else:
-        result = wfr.solve(rho1_d, rho2_d, args.Nt, delta=args.wfr_delta,
-                           **common)
-        # the luminosity slot composes the growth the source term modelled
-        # with the advective dilution correction -div(u, v)
-        m_d = result.m_combined
-    u_d, v_d = result.u, result.v
+        u_d, v_d, m_d, stats = _solve_variational(args, rho1_d, rho2_d)
     u, v, m = u_d.cpu().numpy(), v_d.cpu().numpy(), m_d.cpu().numpy()
     solve_end = time.time()
-    state = result.state
-    print(f"solver: iterations={state.iteration} "
-          f"inner_iterations={state.cg_iterations} "
-          f"crit={float(state.crit)} stepA_solver={solver}")
-    launched = kernels.launch_counts()
-    print("kernel_launches=" + ",".join(
-        f"{k}:{launched[k] - launches_before[k]}" for k in launched))
-    if not args.quiet and args.algo == "foto":
-        w2 = float(foto.wasserstein2(state))
-        print(f"W2(rho0, rhoT) = {w2:.6g} px")
-    elif not args.quiet:
-        dist = float(wfr.wfr_distance(state))
-        created = float(wfr.total_created_mass(state, args.wfr_delta))
-        print(f"WFR(rho0, rhoT) = {dist:.6g} px, "
-              f"created mass = {created:.6g}")
-    if args.checkpoint:
-        checkpoint.save_state(args.checkpoint, state)
-    if args.algo == "WFR" and args.save_growth:
-        growth = result.growth.cpu().numpy()
-        image.save_grayscale(np.clip((growth + 1) / 2, 0, 1).reshape(h, w),
-                             args.save_growth)
+    if ot:
+        _report_ot(args, result, solver, w, h)
+    else:
+        print("solver: " + stats)
+    _print_launches(kernels, launches_before)
     timer = solve_end - start_time
 
     # Benchmark (reference main.py:107-134)

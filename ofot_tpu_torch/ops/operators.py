@@ -39,11 +39,34 @@ def grad2d(f, dx=1.0, dy=1.0, bc="N"):
     return torch.stack([gx, gy])
 
 
+def grad_forward2d(f, dx=1.0, dy=1.0, bc="N"):
+    """Forward-difference spatial gradient -> (2, ..., Ny, Nx)
+    (reference ``operators.grad_forward``, operators.py:171-180)."""
+    gx = stencils.grad_forward(f, dx, bc, axis=_AX_X)
+    gy = stencils.grad_forward(f, dy, bc, axis=_AX_Y)
+    return torch.stack([gx, gy])
+
+
 def div2d(u, v, dx=1.0, dy=1.0, bc="N"):
     """Central-difference divergence of (u, v) -> (..., Ny, Nx)
     (reference ``operators.div``, operators.py:182-191)."""
     return (stencils.grad_central(u, dx, bc, axis=_AX_X)
             + stencils.grad_central(v, dy, bc, axis=_AX_Y))
+
+
+def div_forward_adjoint2d(u, v, dx=1.0, dy=1.0, bc="N"):
+    """``div = -grad_forward^T`` applied to (u, v), as the GN solver builds it
+    (reference classical.py:102-103)."""
+    return -(stencils.grad_forward_adjoint(u, dx, bc, axis=_AX_X)
+             + stencils.grad_forward_adjoint(v, dy, bc, axis=_AX_Y))
+
+
+def lap_gn(f, dx=1.0, dy=1.0, bc="N"):
+    """GN smoothness Laplacian ``lap = div @ grad = -grad_forward^T
+    grad_forward`` (reference classical.py:102-104), applied matrix-free."""
+    gx = stencils.grad_forward(f, dx, bc, axis=_AX_X)
+    gy = stencils.grad_forward(f, dy, bc, axis=_AX_Y)
+    return div_forward_adjoint2d(gx, gy, dx, dy, bc)
 
 
 # --------------------------------------------------------------------------

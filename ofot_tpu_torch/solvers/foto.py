@@ -24,6 +24,8 @@ Algorithm parity notes (SURVEY.md §2 C6):
 Ops sets (``stepA_ops``), named as the JAX CLI names them:
   * ``cg``: matrix-free CG stepA and the unfused stepB/stepC/criterion;
   * ``dct``: exact spectral stepA (``solvers/dct.py``), unfused rest;
+  * ``dct-refined``: spectral stepA whose transforms run in TF32 on cuda,
+    plus three steps of float32 iterative refinement, unfused rest;
   * ``pallas``: spectral stepA plus the fused stepB + stepC + criterion
     pass, which on CUDA tensors is the hand-written kernel
     (``ops/kernels/fused_pointwise.py``).  The name is the JAX flag value,
@@ -86,14 +88,33 @@ class DCTOps(_DefaultOps):
     def __init__(self):
         self._plans = {}
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+    def _plan(self, F, r, reg_epsilon):
         key = (tuple(F.shape), F.dtype, F.device, float(r),
                float(reg_epsilon))
         plan = self._plans.get(key)
         if plan is None:
             plan = self._plans[key] = dct.StepAPlan(
                 F.shape, float(r), float(reg_epsilon), F.dtype, F.device)
-        return plan.solve(F), 1
+        return plan
+
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+        return self._plan(F, r, reg_epsilon).solve(F), 1
+
+
+class DCTRefinedOps(DCTOps):
+    """Spectral stepA with low-precision transforms (TF32 on cuda) plus
+    ``refine`` steps of full-precision iterative refinement
+    (``dct.StepAPlan.solve_refined``); each step is one stencil residual
+    and one more low-precision solve, so a stepA counts ``1 + refine``
+    inner iterations."""
+
+    def __init__(self, refine: int = 3):
+        super().__init__()
+        self.refine = int(refine)
+
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+        phi = self._plan(F, r, reg_epsilon).solve_refined(F, self.refine)
+        return phi, 1 + self.refine
 
 
 class DCTFusedOps(DCTOps):
@@ -129,13 +150,9 @@ class PallasCGOps(_DefaultOps):
 
 DEFAULT_OPS = _DefaultOps()
 
-_OPS = {"cg": _DefaultOps, "dct": DCTOps, "pallas": PallasOps,
-        "dct-fused": DCTFusedOps, "cg-pallas": PallasCGOps}
-_LATER = {
-    "dct-refined": "the refined spectral stepA is not ported yet (it waits "
-                   "for the later slice that ports the dct fold/FFT/refined "
-                   "routes)",
-}
+_OPS = {"cg": _DefaultOps, "dct": DCTOps, "dct-refined": DCTRefinedOps,
+        "pallas": PallasOps, "dct-fused": DCTFusedOps,
+        "cg-pallas": PallasCGOps}
 
 
 def resolve_stepA_solver(solver: str, device) -> str:
@@ -151,9 +168,7 @@ def resolve_stepA_solver(solver: str, device) -> str:
 
 def stepA_ops(solver: str):
     """A fresh ops set for a resolved solver name (ValueError on an unknown
-    or not yet ported name)."""
-    if solver in _LATER:
-        raise ValueError(f"stepA_solver {solver!r}: {_LATER[solver]}")
+    name)."""
     try:
         return _OPS[solver]()
     except KeyError:

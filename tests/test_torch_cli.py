@@ -1,17 +1,22 @@
 """The port's CLI (``ofot_tpu_torch.cli.main``) on the CPU vs the JAX CLI.
 
 Both CLIs read the same small PGM pair and run the sweep's FOTO_ARGS or
-WFR_ARGS (cli/pipeline.py:58-63) with Nt and max-it cut down, at
---precision=f64.  Tolerances: IE rtol 1e-4 and the .flo AEPE between the
-two outputs < 1e-3, the bounds tests/test_cli.py holds its own backends to,
-and the same ALG2 iteration count.
+WFR_ARGS (cli/pipeline.py:58-63) with Nt and max-it cut down, or GN_ARGS
+(:40) and HS, single-level and coarse-to-fine, at --precision=f64.
+Tolerances: IE rtol 1e-4 and the .flo AEPE between the two outputs < 1e-3,
+the bounds tests/test_cli.py holds its own backends to, and the same ALG2
+or CG iteration count; GN's AEPE at f64 < 1e-8 (both run CG to rtol 1e-10
+on the same system).
 """
+
+import json
 
 import numpy as np
 import pytest
+import torch
 
 from ofot_tpu.cli import main as jax_cli
-from ofot_tpu.cli.pipeline import FOTO_ARGS, WFR_ARGS
+from ofot_tpu.cli.pipeline import FOTO_ARGS, GN_ARGS, WFR_ARGS
 from ofot_tpu_torch.cli import main as cli
 from ofot_tpu_torch.utils import flo, image
 
@@ -124,7 +129,7 @@ def test_default_platform_is_cuda():
     assert cli.build_parser().parse_args(["a", "b"]).platform == "cuda"
 
 
-@pytest.mark.parametrize("algo", ["GN", "HS", "sinkhorn", "bogus"])
+@pytest.mark.parametrize("algo", ["sinkhorn", "bogus"])
 def test_other_algos_exit_nonzero(frames, algo, capsys):
     assert cli.main(_argv(frames, f"--algo={algo}")) == 2
     err = capsys.readouterr().err
@@ -137,13 +142,6 @@ def test_other_algos_exit_nonzero(frames, algo, capsys):
 def test_jax_only_outputs_exit_nonzero(frames, flag, capsys):
     assert cli.main(_argv(frames, "--algo=foto", flag)) == 2
     assert "not ported" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("solver", ["dct-refined"])
-def test_later_stepA_solvers_exit_nonzero(frames, solver, capsys):
-    assert cli.main(_argv(frames, "--algo=foto",
-                          f"--stepA-solver={solver}")) == 2
-    assert "slice" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("algo", ["foto", "WFR"])
@@ -242,3 +240,113 @@ def test_resume_from_jax_checkpoint(frames, tmp_path):
         assert int(z["iteration"]) == 6
         assert z["phi"].dtype == np.float32
     assert _aepe(tmp_path / "resumed.flo", tmp_path / "straight.flo") < 1e-3
+
+
+@pytest.fixture(scope="module")
+def big_frames(tmp_path_factory):
+    """A 64x72 pair: three pyramid levels (64x72, 32x36, 16x18)."""
+    d = tmp_path_factory.mktemp("big_frames")
+    f1, f2 = fixtures.smooth_blob_pair(64, 72, shift=(3.0, 2.0))
+    image.save_grayscale(f1, str(d / "f0.pgm"))
+    image.save_grayscale(f2, str(d / "f1.pgm"))
+    return d
+
+
+def _solver_line(out):
+    line = [ln for ln in out.splitlines() if ln.startswith("solver: ")][0]
+    return dict(kv.split("=") for kv in line[len("solver: "):].split())
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+@pytest.mark.parametrize("algo_args,pyramid,precision", [
+    (GN_ARGS, False, "f64"), (GN_ARGS, False, "f32"),
+    (["--algo=HS", "--alpha=0.1"], False, "f64"),
+    (GN_ARGS, True, "f64"), (["--algo=HS"], True, "f64")])
+def test_gn_hs_cli_matches_jax_cli(frames, big_frames, tmp_path, capsys,
+                                   algo_args, pyramid, precision):
+    """GN and HS through both CLIs: the CG step count (the JAX CLI's
+    --log-jsonl record; within one at f32), IE, the .flo and the
+    luminosity image (0 for HS)."""
+    src = big_frames if pyramid else frames
+    extra = ["--pyramid-levels=3"] if pyramid else []
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        argv = _argv(src, *algo_args, *extra, f"--precision={precision}",
+                     f"--out={d}/flow.flo", f"--save-benchmark={d}/b.txt",
+                     f"--save-lum={d}/lum.pgm")
+        if name == "jax":
+            argv.append(f"--log-jsonl={d}/log.jsonl")
+        assert main(argv) == 0
+        outs[name] = d
+    stats = _solver_line(capsys.readouterr().out)
+    port, jax = outs["port"], outs["jax"]
+    record = json.loads((jax / "log.jsonl").read_text().splitlines()[-1])
+    assert stats["converged"] == "True"
+    if pyramid:
+        assert int(stats["pyramid_levels"]) == record["pyramid_levels"] == 3
+    else:
+        slack = 0 if precision == "f64" else 1
+        assert abs(int(stats["inner_iterations"])
+                   - record["inner_iterations"]) <= slack
+    np.testing.assert_allclose(_ie(port / "b.txt"), _ie(jax / "b.txt"),
+                               rtol=1e-4)
+    aepe = _aepe(port / "flow.flo", jax / "flow.flo")
+    assert aepe < 1e-3
+    if algo_args is GN_ARGS and precision == "f64":
+        assert aepe < 1e-8
+    ours = image.read_pgm(str(port / "lum.pgm")).astype(int)
+    theirs = image.read_pgm(str(jax / "lum.pgm")).astype(int)
+    assert np.abs(ours - theirs).max() <= 1
+    if "--algo=HS" in algo_args:
+        assert ours.min() == ours.max()          # m = 0 everywhere
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+def test_dct_refined_cli_matches_jax_cli(frames, tmp_path, capsys):
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        rc = main(_argv(frames, *FOTO_ARGS, *SMALL, "--precision=f64",
+                        "--stepA-solver=dct-refined",
+                        f"--out={d}/flow.flo", f"--save-benchmark={d}/b.txt",
+                        f"--checkpoint={d}/state.npz"))
+        assert rc == 0
+        outs[name] = d
+    port, jax = outs["port"], outs["jax"]
+    np.testing.assert_allclose(_ie(port / "b.txt"), _ie(jax / "b.txt"),
+                               rtol=1e-4)
+    assert _aepe(port / "flow.flo", jax / "flow.flo") < 1e-3
+    with np.load(port / "state.npz") as a, np.load(jax / "state.npz") as b:
+        assert int(a["iteration"]) == int(b["iteration"]) > 1
+        assert int(a["cg_iterations"]) == int(b["cg_iterations"]) \
+            == 4 * int(a["iteration"])
+    stats = _solver_line(capsys.readouterr().out)
+    assert stats["stepA_solver"] == "dct-refined"
+
+
+@pytest.mark.parametrize("algo", ["GN", "HS"])
+def test_gn_hs_print_solver_and_launch_lines(frames, algo, capsys):
+    assert cli.main(_argv(frames, f"--algo={algo}")) == 0
+    out = capsys.readouterr().out
+    stats = _solver_line(out)
+    assert set(stats) == {"inner_iterations", "residual", "converged"}
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("kernel_launches=")][0]
+    counts = dict(kv.split(":") for kv in line.split("=")[1].split(","))
+    assert set(counts.values()) == {"0"}
+
+
+@pytest.mark.parametrize("algo", ["GN", "HS"])
+def test_gn_hs_f64_pass_the_float32_guard(frames, algo, capsys):
+    """GN and HS run no kernel, so f64 on cuda is allowed: without a card
+    the run gets past the float32 guard and stops at the device check."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the run would succeed")
+    argv = [str(frames / "f0.pgm"), str(frames / "f1.pgm"), "--quiet",
+            f"--algo={algo}", "--precision=f64"]
+    with pytest.raises(RuntimeError, match="--platform=cpu"):
+        cli.main(argv)
+    assert "float32" not in capsys.readouterr().err

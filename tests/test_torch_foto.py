@@ -281,12 +281,6 @@ def test_auto_resolves_per_device(device, want):
     assert foto.resolve_stepA_solver("dct", device) == "dct"
 
 
-@pytest.mark.parametrize("name", ["dct-refined"])
-def test_later_slice_solvers_raise(name):
-    with pytest.raises(ValueError, match="slice"):
-        foto.stepA_ops(name)
-
-
 def test_unknown_solver_raises():
     with pytest.raises(ValueError, match="unknown"):
         foto.stepA_ops("bogus")

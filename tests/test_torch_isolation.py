@@ -52,6 +52,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.ops.kernels.cg_operator\n"
         "import ofot_tpu_torch.ops.kernels.projection\n"
         "import ofot_tpu_torch.solvers.wfr\n"
+        "import ofot_tpu_torch.solvers.dct, ofot_tpu_torch.solvers.gn\n"
+        "import ofot_tpu_torch.solvers.hs, ofot_tpu_torch.solvers.pyramid\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"

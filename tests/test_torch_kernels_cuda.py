@@ -18,6 +18,8 @@ Tolerances:
     bound for the Pallas solve (the same float32 products, summed in
     another order, divided by eigenvalues down to r*eps).
 Every kernel's repeat launches are bitwise-equal (fixed summation orders).
+The GN, HS and GN-pyramid solves, which run no kernel, are held on the
+card against the same solves on the CPU.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
 4-byte copies otherwise).
@@ -185,3 +187,74 @@ def test_new_kernels_reject_bad_operands_on_card(cuda_device):
         ds.dct_solve(x.double(), 1.0, 1e-2)
     with pytest.raises(ValueError):
         pk.project_paraboloid(torch.zeros(5, 4, device=cuda_device))
+
+
+def _texture_pair(h, w, shift=(2, 3), sigma=3.0, seed=5):
+    """A smooth random texture in [0.1, 0.9] and the same texture moved by
+    ``shift`` = (dy, dx) pixels."""
+    rng = np.random.default_rng(seed)
+    pad = 16
+    H, W = h + 2 * pad, w + 2 * pad
+    ky = np.fft.fftfreq(H)[:, None]
+    kx = np.fft.fftfreq(W)[None, :]
+    tex = np.fft.ifft2(np.fft.fft2(rng.standard_normal((H, W))) * np.exp(
+        -2 * (np.pi * sigma) ** 2 * (kx ** 2 + ky ** 2))).real
+    tex = 0.1 + 0.8 * (tex - tex.min()) / (tex.max() - tex.min())
+    dy, dx = shift
+    return (tex[pad:pad + h, pad:pad + w],
+            tex[pad - dy:pad - dy + h, pad - dx:pad - dx + w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gn", "hs", "gn-pyramid"])
+def test_gn_hs_card_match_cpu(cuda_device, solver):
+    """GN, HS and the GN pyramid at float32 on the card and on the CPU:
+    CG steps within 3 a solve and fields within 1e-4 of their max — both
+    run CG to rtol 1e-10 and differ only in summation order (chip_smoke.py
+    phase 12's tolerances)."""
+    from ofot_tpu_torch.solvers import gn, hs, pyramid
+    f1, f2 = _texture_pair(96, 128)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        a, b = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                for x in (f1, f2))
+        if solver == "gn":
+            r = gn.solve_fields(a, b)
+            out[dev.type] = ((r.u, r.v, r.m), [r.cg])
+        elif solver == "hs":
+            r = hs.solve_fields(a, b)
+            out[dev.type] = ((r.u, r.v), [r.cg])
+        else:
+            log = []
+            fields = pyramid.solve_gn_pyramid(a, b, levels=3, cg_log=log)
+            out[dev.type] = (fields, log)
+    (card, card_cg), (cpu, cpu_cg) = out["cuda"], out["cpu"]
+    assert card[0].device.type == "cuda"
+    assert len(card_cg) == len(cpu_cg)
+    for x, y in zip(card_cg, cpu_cg):
+        assert x.converged and y.converged
+        assert abs(x.iterations - y.iterations) <= 3
+    for x, y in zip(card, cpu):
+        assert float((x.cpu() - y).abs().max() / y.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_refined_stepA_on_card(cuda_device):
+    """The refined stepA on an ALG2 right-hand side at the sweep shape:
+    TF32 alone is visibly off the float64 solve (6.8e-4 of max|phi| on an
+    H100), three refinement steps bring it within 2e-6 (1.3e-7 measured;
+    the exact float32 solve is at 2.0e-6), and TF32 is off again after."""
+    from ofot_tpu_torch.ops import operators
+    from ofot_tpu_torch.solvers import dct, foto
+    f1, f2 = _texture_pair(240, 320)
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+            for x in (f1, f2))
+    F = operators.div_st(foto.init_state(a, b, 16).mu, bc="N")
+    plan = dct.StepAPlan(F.shape, 1.0, 1e-2, F.dtype, F.device)
+    exact = dct.solve_stepA_dct(F.double(), 1.0, 1e-2)
+    scale = float(exact.abs().max())
+    errs = [float((plan.solve_refined(F, k).double() - exact).abs().max())
+            / scale for k in range(4)]
+    assert errs[0] > 1e-5 and errs[1] < errs[0] and errs[3] < 2e-6, errs
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
