@@ -48,7 +48,25 @@ Phases, each printed with its elapsed seconds:
 12. gn card vs cpu: GN ``solve_fields`` and one GN pyramid solve at
    float32 on the card and on the CPU, CG steps and fields compared;
    warm solves and profiler windows (device busy share, kernel time by
-   name) of the phase-11 paths.
+   name) of the phase-11 paths;
+13. sinkhorn and outputs: the CLI on the same pair, the launch counts set
+   to 0 just before each run and read just after: Sinkhorn at the sweep's
+   SINKHORN_ARGS with the ``auto`` stabilizer (as the pipeline runs it,
+   ``--quiet --log-jsonl``) and again with ``--sinkhorn-stabilizer=exact``;
+   each must converge to the tolerance, write a finite 320x240 .flo,
+   reduce IE below the identity warp's, log a ``solve`` record with the
+   JAX CLI's Sinkhorn keys and launch no kernel.  Then FOTO ``auto`` with
+   ``--max-it`` cut, writing every new output: the 16 density frames and
+   the flow visualization as PNG (header and decompressed length checked,
+   no Pillow), a profiler trace that names the fused kernel, and a JSONL
+   record with the JAX CLI's FOTO keys;
+14. sinkhorn card vs cpu, float32: fixed-iteration solves with both
+   stabilizers, the exact softmin statistics against the CPU's float64
+   ones, the flow at SINKHORN_ARGS, the envelope gradients of the
+   debiased divergence and the implicit GN gradient w.r.t. alpha, and the
+   device color wheel against numpy's; the TF32 settings around a solve;
+   profiler windows of a matmul and an exact check block (ms and device
+   ms per Sinkhorn iteration, launches per iteration, idle share).
 
 Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
 times it a second time cold, rotating over four input and output sets
@@ -73,10 +91,12 @@ import contextlib
 import io
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -103,6 +123,9 @@ WFR_ARGS = ["--algo=WFR", "--r=1", "--convergence-tol=0.01",
             "--wfr-delta=2.5", "--admm-alpha=1.7"]  # pipeline.py:58-60
 GN_ARGS = ["--algo=GN", "--alpha=0.1", "--lambda=0.2"]  # pipeline.py:40
 HS_ARGS = ["--algo=HS", "--alpha=0.1"]
+SINKHORN_ARGS = ["--algo=sinkhorn", "--sinkhorn-epsilon=100.0",
+                 "--max-it=1000"]          # pipeline.py:75-76
+SINKHORN_EPS, SINKHORN_TOL = 100.0, 1e-4
 PYRAMID_LEVELS = 4
 ADMM_ALPHA = 1.7
 WFR_DELTA = 2.5
@@ -137,6 +160,30 @@ CRIT_RTOL, PHI_RTOL = 1e-3, 1e-4
 # m), and takes 2 more CG steps (65 against 63); the card differs from the
 # CPU only in summation order, so 1e-4 is ~20-150x what rounding gives.
 GN_FIELD_RTOL, GN_STEP_SLACK = 1e-4, 3
+# Sinkhorn card vs CPU, both float32, on the pair at eps 100.  On the CPU
+# the float32 results lie this far from the float64 ones: 100 matmul-softmin
+# iterations, f and g within 6.2e-7 and 7.6e-6 of their max, the cost
+# 1.9e-8 relative; 10 exact-softmin iterations, 1.5e-7, 1.9e-6 and 2.8e-8
+# (an exact softmin takes 0.15-0.25 s on the CPU, hence 10 there); the exact
+# statistics 9.1e-7 of their max (S; the means 2.9-4.2e-7); the flow at
+# SINKHORN_ARGS 5.1e-4 px, the same 250 iterations; the divergence's
+# gradient 1.7e-5 of its max and its value 2.6e-4 absolute (a difference of
+# two ~97 px^2 costs); the implicit alpha gradient 8.5e-7 relative.  The
+# card differs from the CPU in summation order and in its exp/log, about as
+# float32 differs from float64, so each bound is ~20-50x that drift.
+SK_MATMUL_ITERS, SK_EXACT_ITERS = 100, 10
+SK_POT_RTOL, SK_COST_RTOL = 2e-4, 1e-6
+SK_STATS_RTOL = 2e-5
+SK_FLOW_ATOL, SK_ITER_SLACK = 1e-2, 25
+SK_GRAD_RTOL, SK_VALUE_ATOL = 5e-4, 5e-3
+IMPLICIT_RTOL = 2e-5
+SINKHORN_KEYS = {"ts", "event", "algo", "f0", "f1", "w", "h", "wall_s", "IE",
+                 "iterations", "marginal_error", "epsilon", "stabilizer",
+                 "wasserstein2", "w2_marginal_error"}
+FOTO_KEYS = {"ts", "event", "algo", "f0", "f1", "w", "h", "wall_s", "IE",
+             "iterations", "inner_iterations", "crit", "stepA_solver",
+             "wasserstein2"}
+OUTPUTS_MAX_IT = 20
 # The card's L2 (H100 SXM: 50 MB); cold timings rotate over enough buffer
 # sets to pass it several times
 L2_BYTES = 50e6
@@ -895,10 +942,14 @@ def run_gn_hs_paths(workdir: Path):
     return paths
 
 
+def _rel_gap(a, b):
+    """max |a - b| / max |b|, in float64 on the host."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def _relative_gaps(card, cpu, names):
-    return {k: float((a.cpu().double() - b.double()).abs().max()
-                     / b.double().abs().max())
-            for k, a, b in zip(names, card, cpu)}
+    return {k: _rel_gap(a, b) for k, a, b in zip(names, card, cpu)}
 
 
 def gn_card_vs_cpu(rho):
@@ -1021,6 +1072,281 @@ def refined_vs_exact(a, b):
                              f"max|phi| off the float64 solve > {DCT_RTOL}")
 
 
+# ---------------------------------------------- Sinkhorn and the outputs
+
+def _read_record(path: Path):
+    lines = path.read_text().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"{path}: {len(lines)} JSONL records, expected 1")
+    return json.loads(lines[0])
+
+
+def run_sinkhorn_path(workdir: Path, label: str, extra):
+    """Phase 13: Sinkhorn through the CLI as the pipeline runs it (quiet,
+    with a JSONL record), the launch counts set to 0 just before and read
+    just after; none may launch."""
+    p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
+    d = workdir / label
+    d.mkdir()
+    argv = [str(p0), str(p1), *SINKHORN_ARGS, *extra, "--quiet",
+            f"--out={d / 'flow.flo'}", f"--save-benchmark={d / 'bench.txt'}",
+            f"--log-jsonl={d / 'log.jsonl'}"]
+    kernels.reset_launch_counts()
+    rc = cli.main(argv)
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{label}: CLI exited with {rc}")
+    ie, solve_s, ie_identity = check_cli_outputs(workdir, label, d)
+    rec = _read_record(d / "log.jsonl")
+    _log(f"  {label}: iterations={rec['iterations']} marginal_error="
+         f"{rec['marginal_error']} stabilizer={rec['stabilizer']} "
+         f"W2={rec['wasserstein2']} w2_marginal_error="
+         f"{rec['w2_marginal_error']} launches={launches} "
+         f"solve_s={solve_s:.4f} IE={ie:.6g} IE_identity={ie_identity:.6g}")
+    check_launches(label, launches, {})
+    if set(rec) != SINKHORN_KEYS:
+        raise AssertionError(f"{label}: record keys {sorted(rec)}")
+    if not (rec["marginal_error"] <= SINKHORN_TOL
+            and np.isfinite(rec["wasserstein2"])):
+        raise AssertionError(f"{label}: marginal error "
+                             f"{rec['marginal_error']} or W2 "
+                             f"{rec['wasserstein2']}")
+    _, _, u, v = flo.read_flo(str(d / "flow.flo"))
+    return dict(rec, ie=ie, solve_s=solve_s, launches=launches, u=u, v=v)
+
+
+def png_info(path: Path):
+    """(w, h, channels) of an 8-bit gray or RGB PNG, after checking its
+    signature and that its pixel data inflates to h rows of 1 + w *
+    channels bytes."""
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = header
+    channels = {0: 1, 2: 3}[color]
+    if depth != 8 or len(zlib.decompress(idat)) != h * (1 + w * channels):
+        raise AssertionError(f"{path}: depth {depth} or pixel data length")
+    return w, h, channels
+
+
+def run_outputs_path(workdir: Path):
+    """Phase 13: FOTO auto with --max-it cut, writing every new output."""
+    d = workdir / "outputs"
+    cut = [a for a in FOTO_ARGS if not a.startswith("--max-it")]
+    run = run_cli_path(workdir, "foto-outputs", [
+        *cut, f"--max-it={OUTPUTS_MAX_IT}", f"--log-jsonl={d}.jsonl",
+        f"--save-density-frames={d}", f"--save-flow-viz={d}.png",
+        f"--profile={d}-trace"], lambda it, cg: {"fused_pointwise": it})
+    if run["iterations"] != OUTPUTS_MAX_IT:
+        raise AssertionError(f"foto-outputs: {run['iterations']} iterations")
+    _, h, w = SHAPE
+    frames = sorted(d.glob("rho-*.png"))
+    want = {f"rho-{n}.png" for n in range(SHAPE[0])}
+    if {p.name for p in frames} != want or any(
+            png_info(p) != (w, h, 1) for p in frames):
+        raise AssertionError(f"density frames: {[p.name for p in frames]}")
+    if png_info(Path(f"{d}.png")) != (w, h, 3):
+        raise AssertionError("flow visualization is not a 320x240 RGB PNG")
+    traces = list(Path(f"{d}-trace").glob("*.pt.trace.json"))
+    named = [p for p in traces if "fused_pointwise" in p.read_text()]
+    rec = _read_record(Path(f"{d}.jsonl"))
+    _log(f"  foto-outputs: {len(frames)} density frames, flow viz "
+         f"{w}x{h} RGB, traces {[p.name for p in traces]} "
+         f"({sum(p.stat().st_size for p in traces) / 1e6:.1f} MB, "
+         f"{len(named)} naming fused_pointwise), record keys "
+         f"{sorted(rec)}")
+    if len(traces) != 1 or not named:
+        raise AssertionError("no profiler trace naming fused_pointwise")
+    if set(rec) != FOTO_KEYS or rec["iterations"] != OUTPUTS_MAX_IT:
+        raise AssertionError(f"foto-outputs record: {rec}")
+    return run
+
+
+def _check_gap(label, gap, tol):
+    _log(f"  {label}: {gap:.3e} (tol {tol:g})")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: {gap:.3e} > {tol:g}")
+
+
+def sinkhorn_card_vs_cpu(rho):
+    """Phase 14: float32 Sinkhorn on the card against the CPU."""
+    from ofot_tpu_torch.solvers import otgrad, sinkhorn
+    from ofot_tpu_torch.solvers.implicit import gn_solve_implicit
+    kw = (("max_iter", 1000), ("tol", SINKHORN_TOL))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in rho)
+        t0 = time.time()
+        mm = sinkhorn.solve(a, b, SINKHORN_EPS, max_iter=SK_MATMUL_ITERS,
+                            tol=0.0)
+        ex = sinkhorn.solve(a, b, SINKHORN_EPS, max_iter=SK_EXACT_ITERS,
+                            check_every=SK_EXACT_ITERS, tol=0.0,
+                            stabilizer="exact")
+        fl = sinkhorn.flow(a, b, SINKHORN_EPS, max_iter=1000,
+                           tol=SINKHORN_TOL)
+        fl.u.cpu()
+        t1 = time.time()
+        at = a.clone().requires_grad_(True)
+        div = otgrad.sinkhorn_divergence_dual(at, b, SINKHORN_EPS, kw)
+        div.backward()
+        alpha = torch.tensor(0.1, device=dev, requires_grad=True)
+        x = gn_solve_implicit(a, b, alpha, 0.2)
+        torch.sum(x[0] ** 2 + x[1] ** 2).backward()
+        t2 = time.time()
+        _log(f"  {dev}: solves and flow {t1 - t0:.3f} s (flow "
+             f"{fl.iterations} iterations, marginal error "
+             f"{float(fl.marginal_error):.4g}), gradients {t2 - t1:.3f} s")
+        runs[dev] = dict(mm=mm, ex=ex, fl=fl, div=div.detach(),
+                         div_grad=at.grad, alpha_grad=alpha.grad)
+    card, cpu = runs["cuda"], runs["cpu"]
+    for k, name in (("mm", "matmul"), ("ex", "exact")):
+        c, p = card[k], cpu[k]
+        _check_gap(f"{name} solve ({c.iterations} iterations) f, g / max",
+                   max(_rel_gap(c.f, p.f), _rel_gap(c.g, p.g)), SK_POT_RTOL)
+        _check_gap(f"{name} solve cost (card {float(c.cost):.9g}, cpu "
+                   f"{float(p.cost):.9g}) relative",
+                   abs(float(c.cost) / float(p.cost) - 1), SK_COST_RTOL)
+    h64 = sinkhorn.solve(*(torch.as_tensor(x, dtype=torch.float64)
+                           for x in rho), SINKHORN_EPS,
+                         max_iter=SK_MATMUL_ITERS, tol=0.0).f
+    want = sinkhorn._exact_stats(h64, SINKHORN_EPS, want_means=True)
+    got = sinkhorn._exact_stats(h64.float().cuda(), SINKHORN_EPS,
+                                want_means=True)
+    _check_gap("exact stats (S, E[y'], E[x'], E[C]) card f32 vs cpu f64 / "
+               "max", max(_rel_gap(x, y) for x, y in zip(got, want)),
+               SK_STATS_RTOL)
+    fc, fp = card["fl"], cpu["fl"]
+    px = max(float((fc.u.cpu() - fp.u).abs().max()),
+             float((fc.v.cpu() - fp.v).abs().max()))
+    zero_c = ((fc.u == 0) & (fc.v == 0)).cpu()
+    zero_p = (fp.u == 0) & (fp.v == 0)
+    _log(f"  flow: iterations card {fc.iterations} cpu {fp.iterations}; "
+         f"pixels with zero flow on one side only: "
+         f"{int((zero_c != zero_p).sum())} (zero on both: "
+         f"{int((zero_c & zero_p).sum())})")
+    _check_gap("flow u, v |card - cpu| px", px, SK_FLOW_ATOL)
+    if abs(fc.iterations - fp.iterations) > SK_ITER_SLACK:
+        raise AssertionError("flow iterations differ by more than a block")
+    _check_gap("divergence value |card - cpu| "
+               f"({float(card['div']):.6g}, {float(cpu['div']):.6g})",
+               abs(float(card["div"]) - float(cpu["div"])), SK_VALUE_ATOL)
+    _check_gap("divergence gradient / max",
+               _rel_gap(card["div_grad"], cpu["div_grad"]), SK_GRAD_RTOL)
+    _check_gap(f"implicit d/dalpha ({float(card['alpha_grad']):.8g}, "
+               f"{float(cpu['alpha_grad']):.8g}) relative",
+               _rel_gap(card["alpha_grad"], cpu["alpha_grad"]),
+               IMPLICIT_RTOL)
+    check_color_wheel(fc)
+    return dict(flow_px=px, iterations=(fc.iterations, fp.iterations))
+
+
+def check_color_wheel(fl):
+    """Phase 14: compute_color_torch on the card against numpy's
+    compute_color on the normalized flow: bitwise given numpy's float32
+    hue; with the card's own hue, off by one level only at pixels where
+    the two atan2 implementations round the hue differently."""
+    from ofot_tpu_torch.utils import colorwheel
+    u, v = fl.u.double(), fl.v.double()
+    maxrad = float(torch.sqrt(u * u + v * v).max())
+    un, vn = (u / maxrad).cpu().numpy(), (v / maxrad).cpu().numpy()
+    want = colorwheel.compute_color(un, vn)
+    u32, v32 = un.astype(np.float32), vn.astype(np.float32)
+    rad_np = np.sqrt(u32 * u32 + v32 * v32)
+    hue_np = np.arctan2(-v32, -u32) / np.pi
+    given = colorwheel._wheel_color(torch.from_numpy(rad_np).cuda(),
+                                    torch.from_numpy(hue_np).cuda())
+    ut, vt = torch.from_numpy(un).cuda(), torch.from_numpy(vn).cuda()
+    got = colorwheel.compute_color_torch(ut, vt).cpu().numpy()
+    hue_card = (torch.atan2(-vt.float(), -ut.float()) / np.pi).cpu().numpy()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    off = diff.any(-1)
+    _log(f"  color wheel on the card: bitwise given numpy's hue: "
+         f"{bool((given.cpu().numpy() == want).all())}; own hue: "
+         f"{int(off.sum())} of {off.size} pixels differ (max "
+         f"{int(diff.max())} level), hues differ at "
+         f"{int((hue_card != hue_np).sum())} pixels")
+    if not (given.cpu().numpy() == want).all():
+        raise AssertionError("compute_color_torch differs given the hue")
+    if diff.max() > 1 or (off & (hue_card == hue_np)).any():
+        raise AssertionError("compute_color_torch differs beyond the hue")
+
+
+def sinkhorn_tf32_guard(rho):
+    """Phase 14: every Sinkhorn product runs with TF32 off, also inside
+    dct._tf32_matmul, whose settings are restored after it; the results
+    are bitwise-equal either way."""
+    from ofot_tpu_torch.solvers import sinkhorn
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+            for x in rho)
+    seen, real = [], sinkhorn._matmul
+
+    def recording(x, y):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(x, y)
+
+    sinkhorn._matmul = recording
+    try:
+        kw = dict(max_iter=25, tol=0.0, verify=False)
+        before = sinkhorn.solve(a, b, SINKHORN_EPS, **kw)
+        with dct._tf32_matmul(a.device):
+            inside_on = torch.backends.cuda.matmul.allow_tf32
+            inside = sinkhorn.solve(a, b, SINKHORN_EPS, **kw)
+        after = sinkhorn.solve(a, b, SINKHORN_EPS, **kw)
+    finally:
+        sinkhorn._matmul = real
+    restored = (torch.backends.cuda.matmul.allow_tf32 is False
+                and torch.get_float32_matmul_precision() == "highest")
+    same = all(torch.equal(x.f, y.f) for x, y in ((before, inside),
+                                                  (before, after)))
+    _log(f"  TF32 guard: {len(seen)} products, TF32 on in {sum(seen)}; "
+         f"TF32 on inside dct._tf32_matmul: {inside_on}; restored after: "
+         f"{restored}; potentials bitwise-equal: {same}")
+    if any(seen) or not inside_on or not restored or not same:
+        raise AssertionError("TF32 reached a Sinkhorn product or was not "
+                             "restored")
+
+
+def profile_sinkhorn(rho):
+    """Phase 14: one matmul and one exact check block (25 iterations) on
+    the card, warm by the host clock and in a profiler window."""
+    from torch.autograd import DeviceType
+    from ofot_tpu_torch.solvers import sinkhorn
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+            for x in rho)
+    warm = sinkhorn.solve_annealed(a, b, SINKHORN_EPS, max_iter=1000,
+                                   verify=False)
+    out = {}
+    for stab in ("matmul", "exact"):
+        def block(n, stab=stab):
+            r = sinkhorn.solve(a, b, SINKHORN_EPS, max_iter=n, tol=0.0,
+                               check_every=n, init_f=warm.f, init_g=warm.g,
+                               stabilizer=stab, verify=False)
+            return r.f
+        block(25).cpu()
+        t0 = time.time()
+        block(25).cpu()
+        ms = 1e3 * (time.time() - t0) / 25
+        events, busy_ms = profile_window(f"sinkhorn {stab} block", block, 25,
+                                         top=8, unit="Sinkhorn iterations")
+        launches = sum(e.count for e in events
+                       if e.device_type == DeviceType.CUDA)
+        _log(f"  sinkhorn {stab}: warm {ms:.4f} ms per iteration (host "
+             f"clock, check included), device {busy_ms / 25:.4f} ms per "
+             f"iteration, {launches / 25:.1f} launches per iteration")
+        out[stab] = dict(ms=ms, device_ms=busy_ms / 25)
+    return out
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -1083,6 +1409,28 @@ def main() -> int:
         with Phase("12 gn card vs cpu"):
             gn_card_vs_cpu(rho)
             profile_gn_hs_paths(rho)
+
+        with Phase("13 sinkhorn and outputs"):
+            sk_auto = run_sinkhorn_path(workdir, "sinkhorn-auto", [])
+            sk_exact = run_sinkhorn_path(workdir, "sinkhorn-exact",
+                                         ["--sinkhorn-stabilizer=exact"])
+            if sk_auto["stabilizer"] != "matmul" \
+                    or sk_exact["stabilizer"] != "exact":
+                raise AssertionError("sinkhorn stabilizers: "
+                                     f"{sk_auto['stabilizer']}, "
+                                     f"{sk_exact['stabilizer']}")
+            gap = max(np.abs(sk_auto["u"] - sk_exact["u"]).max(),
+                      np.abs(sk_auto["v"] - sk_exact["v"]).max())
+            _log(f"  sinkhorn exact vs auto: {sk_exact['iterations']} "
+                 f"against {sk_auto['iterations']} iterations, "
+                 f"{sk_exact['solve_s']:.4f} against "
+                 f"{sk_auto['solve_s']:.4f} s, max |flow gap| {gap:.4g} px")
+            paths["foto-outputs"] = run_outputs_path(workdir)
+
+        with Phase("14 sinkhorn card vs cpu"):
+            sinkhorn_card_vs_cpu(rho)
+            sinkhorn_tf32_guard(rho)
+            profile_sinkhorn(rho)
 
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path

@@ -3,11 +3,15 @@
 Counterpart of ``ofot_tpu.utils.image``.  Binary PGM (P5, maxval 255) is
 read and written with numpy alone, so the GPU path needs no Pillow: a P5
 file's bytes are its 8-bit gray levels, which is exactly what PIL's
-``convert('L')`` returns for it.  Every other format goes through Pillow,
+``convert('L')`` returns for it.  PNG (8-bit gray or RGB) is written with
+``zlib`` and ``struct`` alone.  Every other format goes through Pillow,
 imported inside the function that needs it.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -64,6 +68,45 @@ def write_pgm(arr: np.ndarray, pathname: str) -> None:
         f.write(arr.tobytes())
 
 
+def write_png(arr: np.ndarray, pathname: str) -> None:
+    """Write an (h, w) uint8 array as an 8-bit grayscale PNG, or an (h, w,
+    3) one as 8-bit RGB: one IDAT chunk of zlib-compressed rows, each with
+    filter type 0."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    if arr.ndim == 2:
+        color_type = 0
+    elif arr.ndim == 3 and arr.shape[2] == 3:
+        color_type = 2
+    else:
+        raise ValueError(f"PNG of shape {arr.shape}: expected (h, w) or "
+                         "(h, w, 3)")
+    h, w = arr.shape[:2]
+    rows = np.zeros((h, 1 + arr[0].size), np.uint8)
+    rows[:, 1:] = arr.reshape(h, -1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    with open(pathname, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def _save_uint8(arr: np.ndarray, pathname: str, mode: str) -> None:
+    """Write uint8 pixels by the file name: PGM (gray) and PNG without
+    Pillow, any other format with it."""
+    if mode == "L" and _is_pgm(pathname):
+        write_pgm(arr, pathname)
+    elif pathname.lower().endswith(".png"):
+        write_png(arr, pathname)
+    else:
+        from PIL import Image
+        Image.fromarray(arr, mode).save(pathname)
+
+
 def open_grayscale(pathname: str):
     """Open an image as normalized grayscale -> (field (h, w) float64 in
     [0, 1], w, h), like ``ofot_tpu.utils.image.open_grayscale``."""
@@ -80,11 +123,12 @@ def save_grayscale(field, pathname: str) -> None:
     """Save a [0, 1] field (h, w) as 8-bit grayscale, with the reference's
     clip-then-quantize convention (reference main.py:142)."""
     arr = np.uint8(255 * np.clip(np.asarray(field), 0.0, 1.0))
-    if _is_pgm(pathname):
-        write_pgm(arr, pathname)
-    else:
-        from PIL import Image
-        Image.fromarray(arr, "L").save(pathname)
+    _save_uint8(arr, pathname, "L")
+
+
+def save_rgb(rgb: np.ndarray, pathname: str) -> None:
+    """Save an (h, w, 3) uint8 RGB image (the flow visualization)."""
+    _save_uint8(np.asarray(rgb, np.uint8), pathname, "RGB")
 
 
 def mass_normalize(f1, f2):

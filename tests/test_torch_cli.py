@@ -25,6 +25,17 @@ import fixtures
 SMALL = ["--Nt=4", "--max-it=25"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The shapes here are small: one intra-op thread, so that the suite's
+    parallel workers do not oversubscribe the cores (spinning OpenMP
+    threads slowed this file 8x under a loaded run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
     d = tmp_path_factory.mktemp("frames")
@@ -130,18 +141,40 @@ def test_default_platform_is_cuda():
 
 
 @pytest.mark.parametrize("algo", ["sinkhorn", "bogus"])
-def test_other_algos_exit_nonzero(frames, algo, capsys):
-    assert cli.main(_argv(frames, f"--algo={algo}")) == 2
-    err = capsys.readouterr().err
-    assert ("slice" in err) if algo != "bogus" else ("unknown" in err)
+def test_other_algos_exit_nonzero(frames, tmp_path, algo, capsys):
+    """An unknown --algo exits 2; sinkhorn, refused until the port had it,
+    now runs and writes its flow."""
+    out = tmp_path / "flow.flo"
+    rc = cli.main(_argv(frames, f"--algo={algo}", f"--out={out}"))
+    if algo == "bogus":
+        assert rc == 2 and "unknown" in capsys.readouterr().err
+        return
+    assert rc == 0
+    w, h, u, _ = flo.read_flo(str(out))
+    assert (w, h) == (24, 20) and np.isfinite(u).all()
+
+
+def _artifact(tmp_path, flag):
+    """The files a flag leaves, named relative to the run's directory."""
+    name = flag.split("=")[1]
+    if flag.startswith("--profile"):
+        return list((tmp_path / name).glob("*.pt.trace.json"))
+    if flag.startswith("--save-density-frames"):
+        return sorted((tmp_path / name).glob("rho-*.png"))
+    return [tmp_path / name] if (tmp_path / name).exists() else []
 
 
 @pytest.mark.parametrize("flag", ["--profile=p", "--log-jsonl=l.jsonl",
                                   "--save-flow-viz=v.png",
                                   "--save-density-frames=d"])
-def test_jax_only_outputs_exit_nonzero(frames, flag, capsys):
-    assert cli.main(_argv(frames, "--algo=foto", flag)) == 2
-    assert "not ported" in capsys.readouterr().err
+def test_jax_only_outputs_exit_nonzero(frames, tmp_path, monkeypatch, flag):
+    """The four outputs the port refused until it had them now run with
+    rc 0 and leave their artifact (the density frames: one a time step)."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(_argv(frames, "--algo=foto", "--Nt=4", "--max-it=2",
+                          flag)) == 0
+    files = _artifact(tmp_path, flag)
+    assert len(files) == (4 if "density" in flag else 1)
 
 
 @pytest.mark.parametrize("algo", ["foto", "WFR"])
@@ -350,3 +383,196 @@ def test_gn_hs_f64_pass_the_float32_guard(frames, algo, capsys):
     with pytest.raises(RuntimeError, match="--platform=cpu"):
         cli.main(argv)
     assert "float32" not in capsys.readouterr().err
+
+
+# ------------------------------------------- Sinkhorn and the new outputs
+
+# tests/test_cli.py:65-83's run of --algo=sinkhorn
+SINKHORN_CLI = ["--algo=sinkhorn", "--max-it=500", "--sinkhorn-epsilon=4.0",
+                "--normalize"]
+# keys of the solve record that are not a result: the clock, the paths
+_NOT_RESULTS = ("ts", "wall_s", "f0", "f1")
+
+
+@pytest.fixture(scope="module")
+def square_frames(tmp_path_factory):
+    """tests/test_cli.py's pair: a square moved by (4, 4) px on 24x24."""
+    d = tmp_path_factory.mktemp("square")
+    f1, f2 = fixtures.translating_square(24)
+    image.save_grayscale(f1, str(d / "f0.pgm"))
+    image.save_grayscale(f2, str(d / "f1.pgm"))
+    return d
+
+
+def _record(path):
+    return json.loads(path.read_text().splitlines()[-1])
+
+
+def _run_both(src, tmp_path, *args):
+    """Both CLIs on the same frames, each in its own directory with a
+    .flo, a benchmark file and a JSONL record."""
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        assert main(_argv(src, *args, f"--out={d}/flow.flo",
+                          f"--save-benchmark={d}/b.txt",
+                          f"--log-jsonl={d}/log.jsonl")) == 0
+        outs[name] = d
+    return outs["port"], outs["jax"]
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+@pytest.mark.parametrize("extra", [[], ["--precision=f64"],
+                                   ["--sinkhorn-stabilizer=exact"]])
+def test_sinkhorn_cli_matches_jax_cli(square_frames, tmp_path, extra):
+    """--algo=sinkhorn against the JAX CLI: .flo AEPE < 1e-3, the same
+    record keys, numbers within 1e-4 relative and iterations within one
+    check block (25)."""
+    port, jax = _run_both(square_frames, tmp_path, *SINKHORN_CLI, *extra)
+    assert _aepe(port / "flow.flo", jax / "flow.flo") < 1e-3
+    np.testing.assert_allclose(_ie(port / "b.txt"), _ie(jax / "b.txt"),
+                               rtol=1e-4)
+    ours, theirs = _record(port / "log.jsonl"), _record(jax / "log.jsonl")
+    assert set(ours) == set(theirs)
+    assert ours["stabilizer"] == theirs["stabilizer"]
+    assert abs(ours["iterations"] - theirs["iterations"]) <= 25
+    for key in ("IE", "epsilon", "wasserstein2"):
+        np.testing.assert_allclose(ours[key], theirs[key], rtol=1e-4)
+    for key in ("marginal_error", "w2_marginal_error"):
+        assert ours[key] <= 1e-4 and theirs[key] <= 1e-4
+    # the square moves by (4, 4): the plan's barycentric map moves it
+    _, _, u, _ = flo.read_flo(str(port / "flow.flo"))
+    moving = np.abs(u) > 0.5
+    assert moving.any() and abs(u[moving].mean() - 4.0) < 0.5
+
+
+@pytest.fixture(scope="module")
+def corner_frames(tmp_path_factory):
+    """tests/test_sinkhorn.py's exp-window pair: a blob moved corner to
+    corner on 64x64, whose potential spread is past float32's exp window
+    at eps 4."""
+    d = tmp_path_factory.mktemp("corner")
+    y, x = np.mgrid[0:64, 0:64].astype(np.float64)
+    for name, c in (("f0", 8), ("f1", 55)):
+        image.save_grayscale(np.exp(-((y - c) ** 2 + (x - c) ** 2) / 18),
+                             str(d / f"{name}.pgm"))
+    return d
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+def test_sinkhorn_auto_escalates_like_jax_cli(corner_frames, tmp_path,
+                                              capsys):
+    """Past the matmul softmin's envelope the verified marginal error
+    misses the tolerance, and both CLIs re-solve with the exact softmin
+    and log the matmul run's error beside the exact run's."""
+    port, jax = _run_both(corner_frames, tmp_path, "--algo=sinkhorn",
+                          "--max-it=600", "--sinkhorn-epsilon=4.0")
+    assert "re-solving with the exactly-stabilized softmin" in \
+        capsys.readouterr().out
+    ours, theirs = _record(port / "log.jsonl"), _record(jax / "log.jsonl")
+    assert set(ours) == set(theirs)
+    assert ours["stabilizer"] == theirs["stabilizer"] == "exact"
+    assert ours["marginal_error_matmul"] > 0.1
+    assert theirs["marginal_error_matmul"] > 0.1
+    assert ours["marginal_error"] <= 1e-4
+    assert abs(ours["iterations"] - theirs["iterations"]) <= 25
+    assert _aepe(port / "flow.flo", jax / "flow.flo") < 1e-3
+
+
+def test_sinkhorn_f32_envelope_warning(square_frames, capsys):
+    """The envelope warning fires only when matmul is pinned at float32
+    (tests/test_cli.py:85-108)."""
+    run = ["--algo=sinkhorn", "--max-it=100", "--sinkhorn-epsilon=1.0"]
+    assert cli.main(_argv(square_frames, *run,
+                          "--sinkhorn-stabilizer=matmul")) == 0
+    assert "f32 envelope" in capsys.readouterr().err
+    assert cli.main(_argv(square_frames, *run)) == 0
+    assert "envelope" not in capsys.readouterr().err
+    assert cli.main(_argv(square_frames, *run, "--precision=f64")) == 0
+    assert "envelope" not in capsys.readouterr().err
+
+
+def test_sinkhorn_max_iter_warning(square_frames, capsys):
+    assert cli.main(_argv(square_frames, "--algo=sinkhorn", "--max-it=2",
+                          "--sinkhorn-tol=1e-12")) == 0
+    err = capsys.readouterr().err
+    assert "marginal error" in err and "--max-it" in err
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+@pytest.mark.parametrize("theta", ["2.0", "0", "-0.5", "2.5"])
+def test_sinkhorn_theta_guard_matches_jax_cli(square_frames, theta):
+    argv = _argv(square_frames, "--algo=sinkhorn",
+                 f"--sinkhorn-theta={theta}")
+    with pytest.raises(SystemExit) as ours:
+        cli.main(argv)
+    with pytest.raises(SystemExit) as theirs:
+        jax_cli.main(argv)
+    assert str(ours.value) == str(theirs.value)
+    assert "outside the convergent range" in str(ours.value)
+
+
+_FOTO_SHORT = ["--algo=foto", "--Nt=4", "--max-it=3"]
+_WFR_SHORT = ["--algo=WFR", "--Nt=4", "--max-it=3"]
+_SINKHORN_SHORT = ["--algo=sinkhorn", "--sinkhorn-stabilizer=matmul",
+                   "--max-it=300"]
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+@pytest.mark.parametrize("algo_args,quiet", [
+    (_FOTO_SHORT, True), (_FOTO_SHORT, False), (_WFR_SHORT, True),
+    (_WFR_SHORT, False), (["--algo=GN"], True), (["--algo=HS"], True),
+    (["--algo=GN", "--pyramid-levels=2"], True),
+    (["--algo=HS", "--pyramid-levels=2"], True),
+    (_SINKHORN_SHORT, True), (_SINKHORN_SHORT, False)])
+def test_log_jsonl_keys_match_jax_cli(frames, tmp_path, algo_args, quiet):
+    """One solve record with the JAX CLI's keys on every path; for the
+    paths with diagnostics (W2, the WFR distance), with and without
+    --quiet (they are computed for the record)."""
+    records = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        log = tmp_path / f"{name}.jsonl"
+        argv = [str(frames / "f0.pgm"), str(frames / "f1.pgm"),
+                "--platform=cpu", *algo_args, f"--log-jsonl={log}"]
+        assert main(argv + (["--quiet"] if quiet else [])) == 0
+        lines = log.read_text().splitlines()
+        assert len(lines) == 1
+        records[name] = json.loads(lines[0])
+    ours, theirs = records["port"], records["jax"]
+    assert set(ours) == set(theirs)
+    assert ours["event"] == "solve" and ours["algo"] == theirs["algo"]
+    assert (ours["w"], ours["h"]) == (theirs["w"], theirs["h"]) == (24, 20)
+    for key in set(ours) - set(_NOT_RESULTS):
+        assert type(ours[key]) is type(theirs[key]), key
+
+
+@pytest.mark.usefixtures("no_repo_cache")
+def test_density_frames_and_flow_viz_match_jax_cli(frames, tmp_path):
+    """--save-density-frames and --save-flow-viz on the same float64 FOTO
+    run: the same PNG pixels as the JAX CLI's (Pillow decodes both)."""
+    from PIL import Image
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / name
+        assert main(_argv(frames, "--algo=foto", "--Nt=4", "--max-it=5",
+                          "--reg-epsilon=1e-2", "--stepA-solver=dct",
+                          "--precision=f64", f"--save-density-frames={d}",
+                          f"--save-flow-viz={d}/viz.png")) == 0
+    port, jax = tmp_path / "port", tmp_path / "jax"
+    names = sorted(p.name for p in jax.glob("rho-*.png"))
+    assert names == sorted(p.name for p in port.glob("rho-*.png"))
+    assert len(names) == 4
+    for n in names + ["viz.png"]:
+        ours, theirs = Image.open(port / n), Image.open(jax / n)
+        assert ours.mode == theirs.mode == ("RGB" if n == "viz.png" else "L")
+        np.testing.assert_array_equal(np.asarray(ours), np.asarray(theirs),
+                                      err_msg=n)
+
+
+def test_profile_trace_names_the_solver_ops(frames, tmp_path):
+    assert cli.main(_argv(frames, "--algo=sinkhorn",
+                          f"--profile={tmp_path}/p")) == 0
+    (path,) = (tmp_path / "p").glob("*.pt.trace.json")
+    names = {e.get("name") for e in json.loads(path.read_text())[
+        "traceEvents"]}
+    assert "aten::matmul" in names and "aten::exp" in names

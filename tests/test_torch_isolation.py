@@ -54,6 +54,11 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.solvers.wfr\n"
         "import ofot_tpu_torch.solvers.dct, ofot_tpu_torch.solvers.gn\n"
         "import ofot_tpu_torch.solvers.hs, ofot_tpu_torch.solvers.pyramid\n"
+        "import ofot_tpu_torch.solvers.sinkhorn\n"
+        "import ofot_tpu_torch.solvers.otgrad\n"
+        "import ofot_tpu_torch.solvers.implicit\n"
+        "import ofot_tpu_torch.utils.trace\n"
+        "import ofot_tpu_torch.utils.colorwheel\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"

@@ -19,7 +19,8 @@ Tolerances:
     another order, divided by eigenvalues down to r*eps).
 Every kernel's repeat launches are bitwise-equal (fixed summation orders).
 The GN, HS and GN-pyramid solves, which run no kernel, are held on the
-card against the same solves on the CPU.
+card against the same solves on the CPU, and so are fixed-iteration
+Sinkhorn solves (both stabilizers) and the device color wheel.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
 4-byte copies otherwise).
@@ -258,3 +259,67 @@ def test_refined_stepA_on_card(cuda_device):
     assert errs[0] > 1e-5 and errs[1] < errs[0] and errs[3] < 2e-6, errs
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stabilizer", ["matmul", "exact"])
+def test_sinkhorn_card_matches_cpu(cuda_device, stabilizer):
+    """25 fixed float32 Sinkhorn iterations at 64x80, eps 100, on the card
+    and on the CPU: potentials within 2e-4 of their max and the cost
+    within 1e-6 relative (chip_smoke.py phase 14's bounds, ~20-50x the
+    CPU's own float32-vs-float64 drift), with TF32 off in every product
+    even when the caller turned it on."""
+    from ofot_tpu_torch.solvers import sinkhorn
+    f1, f2 = _texture_pair(64, 80)
+    seen, real = [], sinkhorn._matmul
+
+    def recording(x, y):
+        if x.is_cuda:
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(x, y)
+
+    out = {}
+    allow = torch.backends.cuda.matmul.allow_tf32
+    try:
+        sinkhorn._matmul = recording
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for dev in (cuda_device, torch.device("cpu")):
+            a, b = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                    for x in (f1, f2))
+            out[dev.type] = sinkhorn.solve(a, b, 100.0, max_iter=25, tol=0.0,
+                                           stabilizer=stabilizer)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        sinkhorn._matmul = real
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    # the exact softmin has no product
+    assert not any(seen) and (len(seen) > 0) == (stabilizer == "matmul")
+    card, cpu = out["cuda"], out["cpu"]
+    assert card.f.device.type == "cuda" and card.iterations == 25
+    for x, y in ((card.f, cpu.f), (card.g, cpu.g)):
+        assert float((x.cpu() - y).abs().max() / y.abs().max()) < 2e-4
+    assert abs(float(card.cost) / float(cpu.cost) - 1) < 1e-6
+
+
+@pytest.mark.cuda
+def test_compute_color_torch_on_card(cuda_device):
+    """The device color wheel: bitwise numpy's given numpy's float32 hue;
+    with the card's own atan2, off by one level only where the two hues
+    round differently."""
+    from ofot_tpu_torch.utils import colorwheel
+    rng = np.random.default_rng(3)
+    u, v = (rng.uniform(-1.5, 1.5, (240, 320)) for _ in range(2))
+    want = colorwheel.compute_color(u, v)
+    u32, v32 = u.astype(np.float32), v.astype(np.float32)
+    rad = torch.from_numpy(np.sqrt(u32 * u32 + v32 * v32)).to(cuda_device)
+    hue_np = np.arctan2(-v32, -u32) / np.pi
+    given = colorwheel._wheel_color(rad, torch.from_numpy(hue_np).to(
+        cuda_device))
+    assert given.device.type == "cuda"
+    np.testing.assert_array_equal(given.cpu().numpy(), want)
+    ut, vt = (torch.from_numpy(x).to(cuda_device) for x in (u, v))
+    got = colorwheel.compute_color_torch(ut, vt).cpu().numpy()
+    hue_card = (torch.atan2(-vt.float(), -ut.float()) / np.pi).cpu().numpy()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1
+    assert not (diff.any(-1) & (hue_card == hue_np)).any()
