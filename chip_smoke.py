@@ -6,8 +6,9 @@
 Phases, each printed with its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run;
-2. build: one ``nvcc`` call compiles ``ofot_tpu_torch/csrc/*.cu`` into
-   ``ofot_tpu_torch/_build/`` (plain C interface, loaded with ctypes);
+2. build: one ``nvcc`` per ``ofot_tpu_torch/csrc/*.cu`` source, all
+   started together, then one link into ``ofot_tpu_torch/_build/``
+   (plain C interface, loaded with ctypes);
 3. kernel vs plain: the fused stepB/stepC/criterion kernel against its
    plain torch version on the same CUDA tensors, at (3|4, 16, 240, 320),
    alpha 1 and 1.7, with repeat launches bitwise-equal in the criterion
@@ -66,7 +67,28 @@ Phases, each printed with its elapsed seconds:
    debiased divergence and the implicit GN gradient w.r.t. alpha, and the
    device color wheel against numpy's; the TF32 settings around a solve;
    profiler windows of a matmul and an exact check block (ms and device
-   ms per Sinkhorn iteration, launches per iteration, idle share).
+   ms per Sinkhorn iteration, launches per iteration, idle share);
+15. pipeline: the port's sweep (``cli/pipeline.py``) in process, on
+   Middlebury-layout data written here as PNG without Pillow, as
+   ``download`` lays it out: 3 middlebury-1 sequences (seeded textured
+   pairs at 320x240 moved by integer shifts), the middlebury-1-lum set
+   made from them by the pipeline's illumination augmentation, both
+   mass-normalized by the pipeline, and 2 middlebury-2 sequences at
+   Middlebury's native 584x388 and 640x480 with a constant ground-truth
+   flow.  ``run`` over GN, foto, WFR and sinkhorn with the launch counts
+   set to 0 just before and read just after: every artifact and manifest
+   key, finite flows of each frame size, well-formed PNGs, FOTO and WFR
+   on the fused kernel (``pallas``), Sinkhorn to its tolerance in
+   float32 on the card (a float64 re-solve or a failed escalation fails
+   the phase), IE below each sequence's identity warp's, GN's EE below
+   the zero flow's, and ``fused_pointwise`` launched once per FOTO and
+   WFR ALG2 iteration; ``run`` again solves nothing (0 launches, the
+   manifest unchanged); ``run --batch`` (map mode, one group per dataset
+   and frame size) with the same checks, its flows within AEPE 1e-4 of
+   the per-sequence flows with the same iteration counts; then
+   ``parallel.sweep.solve_batch_full`` on the middlebury-1 pairs bitwise
+   against single-pair solves.  Prints per algo and frame size the
+   median wall, solver wall and time outside the solve.
 
 Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
 times it a second time cold, rotating over four input and output sets
@@ -1347,6 +1369,287 @@ def profile_sinkhorn(rho):
     return out
 
 
+# ------------------------------------------------------------- pipeline
+
+# The sweep's data (phase 15), in the layout and at the frame sizes of a
+# real sweep: middlebury-1 holds seeded textured pairs at 320x240 (the eval
+# frames after the pipeline's 50% resize), each moved by an integer
+# (dy, dx); middlebury-1-lum is made from it by the pipeline's own seeded
+# illumination augmentation, and both are mass-normalized by the
+# pipeline's own step, in the order `download` runs them; middlebury-2
+# keeps two of Middlebury's native other-data sizes (584x388 as
+# Dimetrodon, 640x480 as Grove2) and carries each shift as a constant
+# ground-truth flow (u = dx, v = dy)
+SWEEP_MB1 = ((240, 320), [(2, 3), (-3, 1), (1, -2)])
+SWEEP_MB2 = [((388, 584), (2, -1)), ((480, 640), (-1, 2))]
+SWEEP_DATASETS = ("middlebury-1", "middlebury-1-lum", "middlebury-2")
+SWEEP_ALGOS = ("GN", "foto", "WFR", "sinkhorn")
+# Manifest keys of a per-sequence row: the pipeline's own, then the keys it
+# folds from the CLI's --log-jsonl solve record, by algorithm; a row may
+# add first_of_program and, for Sinkhorn, the escalation's keys
+SWEEP_KEYS = {"status", "algo", "wall_s", "solver_wall_s", "IE"}
+SWEEP_FOLDED = {
+    "GN": {"inner_iterations", "residual"},
+    "foto": {"iterations", "inner_iterations", "crit", "wasserstein2",
+             "stepA_solver"},
+    "WFR": {"iterations", "crit", "delta", "wfr_distance", "created_mass",
+            "stepA_solver"},
+    "sinkhorn": {"iterations", "marginal_error", "epsilon", "stabilizer",
+                 "wasserstein2", "w2_marginal_error"}}
+SWEEP_OPTIONAL = {"first_of_program", "marginal_error_matmul",
+                  "marginal_error_batch", "marginal_error_exact",
+                  "escalated_exact"}
+# a row that needed the float64 re-solve, or whose escalation failed, fails
+# the phase: the card's float32 solves (matmul, then exact) must converge
+SWEEP_REFUSED = {"escalated_f64", "marginal_error_f32", "escalation_failed"}
+BATCH_KEYS = {"status", "algo", "wall_s", "batched", "batch_size",
+              "batch_mode", "wall_includes_compile"}
+BATCH_DIAG = {"GN": {"inner_iterations", "converged"},
+              "foto": {"iterations", "inner_iterations", "crit"},
+              "WFR": {"iterations", "crit"},
+              "sinkhorn": {"iterations", "marginal_error"}}
+# batch flows against per-sequence flows (tests/test_batch_sweep.py's bound)
+SWEEP_BATCH_AEPE = 1e-4
+
+
+def write_sweep_data(root: Path):
+    """The phase-15 datasets, made as the pipeline's ``download`` makes
+    them -> {"<dataset>/<seq>": (shift, frame dir, (h, w))}."""
+    from ofot_tpu_torch.cli import pipeline
+    seqs, seed = {}, SEED
+
+    def write(ds, sub, name, shape, shift):
+        nonlocal seed
+        seed += 1
+        d = root / ds / sub / name
+        d.mkdir(parents=True)
+        f0, f1 = textured_pair(*shape, shift=shift, seed=seed)
+        image.save_grayscale(f0, str(d / "frame10.png"))
+        image.save_grayscale(f1, str(d / "frame11.png"))
+        seqs[f"{ds}/{name}"] = (shift, d, shape)
+
+    shape, shifts = SWEEP_MB1
+    for i, shift in enumerate(shifts):
+        write("middlebury-1", "eval-data-gray", f"seq{i}", shape, shift)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline._create_lum_dataset(root)
+        for ds in ("middlebury-1", "middlebury-1-lum"):
+            pipeline._normalize_dataset(root / ds)
+    for i, shift in enumerate(shifts):
+        seqs[f"middlebury-1-lum/seq{i}"] = (
+            shift, root / "middlebury-1-lum" / "eval-data-gray" / f"seq{i}",
+            shape)
+    for i, ((h, w), shift) in enumerate(SWEEP_MB2):
+        write("middlebury-2", "other-data-gray", f"seq{i}", (h, w), shift)
+        g = root / "middlebury-2" / "other-gt-flow" / f"seq{i}"
+        g.mkdir(parents=True)
+        flo.write_flo(w, h, np.full(w * h, float(shift[1])),
+                      np.full(w * h, float(shift[0])), str(g / "flow10.flo"))
+    return seqs
+
+
+def run_sweep(data: Path, results: Path, *extra):
+    """The port's pipeline in process, every launch count set to 0 just
+    before and read just after -> (manifest, launches, seconds).  The
+    solves' own prints are kept, and shown only when the run fails."""
+    from ofot_tpu_torch.cli import pipeline
+    argv = ["run", "--data-root", str(data), "--results", str(results),
+            "--datasets", ",".join(SWEEP_DATASETS), "--algos",
+            ",".join(SWEEP_ALGOS), *extra]
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = pipeline.main(argv)
+    except BaseException:
+        _log(out.getvalue()[-4000:])
+        raise
+    seconds = time.time() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        _log(out.getvalue()[-4000:])
+        raise AssertionError(f"pipeline {' '.join(argv)} exited with {rc}")
+    manifest = json.loads((results / "manifest.json").read_text())
+    return manifest, launches, seconds
+
+
+def _bench_lines(path: Path):
+    return dict(ln.split(": ", 1) for ln in path.read_text().splitlines())
+
+
+def check_sweep(label, seqs, results: Path, manifest, launches, batch):
+    """Every artifact, manifest key and bound of one sweep; the fused
+    kernel launched once per FOTO and WFR ALG2 iteration, no other."""
+    if sorted(manifest) != sorted(seqs):
+        raise AssertionError(f"{label}: manifest rows {sorted(manifest)}")
+    alg2_iterations, ees, escalated = 0, {}, []
+    for key, (shift, frames, (h, w)) in seqs.items():
+        out = results / key
+        gt = key.startswith("middlebury-2")
+        # the batch writes no growth map (as in JAX)
+        names = (["diff.png"] + ([] if batch else ["wfr.growth.png"])
+                 + (["flow10.png"] if gt else []))
+        for algo in SWEEP_ALGOS:
+            a = algo.lower()
+            names += [f"{a}.flo", f"{a}.benchmark.txt", f"{a}.rec.png",
+                      f"{a}.lum.png", f"{a}.png", f".out.{a}.sucess"]
+        missing = [n for n in names if not (out / n).exists()]
+        if missing:
+            raise AssertionError(f"{label} {key}: missing {missing}")
+        rgb = {"flow10.png"} | {f"{a.lower()}.png" for a in SWEEP_ALGOS}
+        for p in out.glob("*.png"):
+            want = (w, h, 3 if p.name in rgb else 1)
+            if png_info(p) != want or image.read_png(str(p)).shape != (h, w):
+                raise AssertionError(f"{label} {key}: {p.name} is not a "
+                                     f"well-formed {want} PNG")
+        g0, _, _ = image.open_grayscale(str(frames / "frame10.png"))
+        g1, _, _ = image.open_grayscale(str(frames / "frame11.png"))
+        ie_identity = metrics.IE(w, h, g0, g1)
+        ee_zero = float(np.hypot(*shift))
+        for algo in SWEEP_ALGOS:
+            row = manifest[key][algo]
+            keys = set(row)
+            want = (BATCH_KEYS | BATCH_DIAG[algo] if batch
+                    else SWEEP_KEYS | SWEEP_FOLDED[algo])
+            if batch and row.get("escalated_exact"):
+                # re-solved per sequence: the CLI's solve record is folded in
+                want |= SWEEP_KEYS | SWEEP_FOLDED[algo]
+            if row.get("status") != "ok" or keys & SWEEP_REFUSED or not (
+                    want <= keys <= want | SWEEP_OPTIONAL):
+                raise AssertionError(f"{label} {key} {algo}: row {row}")
+            if keys & {"escalated_exact", "marginal_error_matmul"}:
+                escalated.append(f"{key} {algo}")
+            fw, fh, u, v = flo.read_flo(str(out / f"{algo.lower()}.flo"))
+            if (fw, fh) != (w, h) or not (np.isfinite(u).all()
+                                          and np.isfinite(v).all()):
+                raise AssertionError(f"{label} {key} {algo}: .flo {fw}x{fh} "
+                                     "or not finite")
+            bench = _bench_lines(out / f"{algo.lower()}.benchmark.txt")
+            ie = float(bench["IE"])
+            if not ie < ie_identity:
+                raise AssertionError(f"{label} {key} {algo}: IE {ie} not "
+                                     f"below the identity's {ie_identity}")
+            if gt:
+                ee = float(bench["EE-mean"])
+                ees.setdefault(algo, []).append(f"{ee:.4f}/{ee_zero:.4f}")
+                # the dynamic-OT flows of these dense frames stay near zero
+                # (the luminosity term carries the change), so only GN's
+                # EE must beat the zero flow's
+                if not np.isfinite(ee) or (algo == "GN" and not ee < ee_zero):
+                    raise AssertionError(f"{label} {key} {algo}: EE {ee} "
+                                         f"against the zero flow's {ee_zero}")
+            if algo in ("foto", "WFR"):
+                alg2_iterations += int(row["iterations"])
+                if not batch and row["stepA_solver"] != "pallas":
+                    raise AssertionError(f"{label} {key} {algo}: stepA "
+                                         f"{row['stepA_solver']}")
+            if algo == "sinkhorn" and not row["marginal_error"] <= \
+                    SINKHORN_TOL:
+                raise AssertionError(f"{label} {key}: Sinkhorn marginal "
+                                     f"error {row['marginal_error']}")
+    _log(f"  {label}: EE / zero flow's EE on the ground-truth sequences "
+         f"{ees}; re-solved with the exact softmin: {escalated}")
+    check_launches(label, launches, {"fused_pointwise": alg2_iterations})
+    return alg2_iterations
+
+
+def sweep_times(manifest, seqs, seconds, batch):
+    """Phase 15's printed times: per algo and frame size the median wall_s
+    and, per sequence, solver_wall_s and the time outside the solve, and
+    the first_of_program row's wall (a batch row has its group's wall / n
+    only)."""
+    for algo in SWEEP_ALGOS:
+        for shape in sorted({sh for _, _, sh in seqs.values()}):
+            rows = [manifest[k][algo] for k, (_, _, sh) in seqs.items()
+                    if sh == shape]
+            walls = [r["wall_s"] for r in rows]
+            size = f"{shape[1]}x{shape[0]}"
+            if batch:
+                _log(f"  batch {algo} {size}: median wall_s "
+                     f"{statistics.median(walls):.4f} s over {len(rows)} "
+                     "sequences")
+                continue
+            solver = [r["solver_wall_s"] for r in rows]
+            outside = [r["wall_s"] - r["solver_wall_s"] for r in rows]
+            first = [r["wall_s"] for r in rows if r.get("first_of_program")]
+            _log(f"  sweep {algo} {size}: median wall_s "
+                 f"{statistics.median(walls):.4f} s, solver_wall_s "
+                 f"{statistics.median(solver):.4f} s, outside the solve "
+                 f"{statistics.median(outside):.4f} s over {len(rows)} "
+                 f"sequences; first_of_program wall "
+                 f"{first[0] if first else float('nan'):.4f} s")
+    _log(f"  {'batch' if batch else 'sweep'} seconds {seconds:.2f}")
+
+
+def run_pipeline_phase(workdir: Path):
+    """Phase 15: the port's sweep per sequence, resumed, and in map-mode
+    batch, then solve_batch_full against single-pair solves."""
+    from ofot_tpu_torch.parallel import sweep
+    data = workdir / "sweep-data"
+    seqs = write_sweep_data(data)
+    per_seq = workdir / "sweep"
+    manifest, launches, seconds = run_sweep(data, per_seq)
+    alg2 = check_sweep("sweep", seqs, per_seq, manifest, launches, False)
+    _log(f"  sweep: {len(seqs)} sequences x {len(SWEEP_ALGOS)} algorithms, "
+         f"launches {launches} (FOTO + WFR ALG2 iterations {alg2})")
+    sweep_times(manifest, seqs, seconds, False)
+
+    again, launches, seconds = run_sweep(data, per_seq)
+    _log(f"  resume: {seconds:.2f} s, launches {launches}")
+    check_launches("resume", launches, {})
+    if again != manifest:
+        raise AssertionError("resume changed the manifest")
+
+    batched = workdir / "sweep-batch"
+    bman, launches, seconds = run_sweep(data, batched, "--batch")
+    alg2 = check_sweep("batch", seqs, batched, bman, launches, True)
+    worst = 0.0
+    for key in seqs:
+        for algo in SWEEP_ALGOS:
+            count = ("inner_iterations" if algo == "GN" else "iterations")
+            if bman[key][algo][count] != manifest[key][algo][count]:
+                raise AssertionError(f"batch {key} {algo}: {count} "
+                                     f"{bman[key][algo][count]} against "
+                                     f"{manifest[key][algo][count]}")
+            _, _, u1, v1 = flo.read_flo(str(per_seq / key /
+                                            f"{algo.lower()}.flo"))
+            _, _, u2, v2 = flo.read_flo(str(batched / key /
+                                            f"{algo.lower()}.flo"))
+            worst = max(worst, float(np.hypot(u1 - u2, v1 - v2).mean()))
+    _log(f"  batch: {seconds:.2f} s, launches {launches} (FOTO + WFR ALG2 "
+         f"iterations {alg2}); worst AEPE against per-sequence {worst:.3g} "
+         f"(tol {SWEEP_BATCH_AEPE:g})")
+    if not worst < SWEEP_BATCH_AEPE:
+        raise AssertionError(f"batch flows {worst} px from per-sequence")
+    sweep_times(bman, seqs, seconds, True)
+
+    # solve_batch_full on the middlebury-1 pairs against single-pair solves
+    # of the same arrays, bitwise
+    frames = [d for k, (_, d, _) in seqs.items()
+              if k.split("/")[0] == "middlebury-1"]
+    f1s = np.stack([image.open_grayscale(str(d / "frame10.png"))[0]
+                    for d in frames]).astype(np.float32)
+    f2s = np.stack([image.open_grayscale(str(d / "frame11.png"))[0]
+                    for d in frames]).astype(np.float32)
+    Nt = SHAPE[0]
+    params = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=200,
+                  admm_alpha=ADMM_ALPHA)
+    u, v, m, diag = sweep.solve_batch_full(
+        "foto", f1s, f2s, foto_params=dict(params, Nt=Nt), device="cuda")
+    for i in range(len(frames)):
+        a = torch.as_tensor(f1s[i], device="cuda")
+        b = torch.as_tensor(f2s[i], device="cuda")
+        one = foto.solve(a, b, Nt, **params, ops=foto.stepA_ops("pallas"))
+        if not (torch.equal(u[i], one.u) and torch.equal(v[i], one.v)
+                and torch.equal(m[i], one.m)
+                and diag["iterations"][i] == one.state.iteration):
+            raise AssertionError(f"solve_batch_full pair {i} is not the "
+                                 "single-pair solve bitwise")
+    _log(f"  solve_batch_full(foto) on {len(frames)} pairs: bitwise the "
+         f"single-pair solves, iterations {diag['iterations'].tolist()}")
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -1366,7 +1669,8 @@ def main() -> int:
     with Phase("2 build"):
         t0 = time.time()
         report = _build.build(extra_flags=("-Xptxas", "-v"))
-        _log(f"  nvcc build of {len(_build.sources())} sources, one call, "
+        _log(f"  nvcc build of {len(_build.sources())} sources, one call "
+             "each in parallel and a link, "
              f"{time.time() - t0:.2f} s -> {_build.library_path()}")
         for ln in report.splitlines():
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
@@ -1431,6 +1735,9 @@ def main() -> int:
             sinkhorn_card_vs_cpu(rho)
             sinkhorn_tf32_guard(rho)
             profile_sinkhorn(rho)
+
+        with Phase("15 pipeline"):
+            run_pipeline_phase(workdir)
 
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path

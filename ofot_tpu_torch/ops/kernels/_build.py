@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source has a plain C interface and includes no PyTorch
-header (they share device code through ``csrc/*.cuh`` headers), so one
-``nvcc`` call compiles them all into one shared library in seconds:
+header (they share device code through ``csrc/*.cuh`` headers), so plain
+``nvcc`` builds them in seconds: one compile per source, all started
+together, then one link into a shared library:
 
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <source>.o ofot_tpu_torch/csrc/<source>.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o ofot_tpu_torch/_build/libofot_kernels.so \\
-         ofot_tpu_torch/csrc/*.cu
+         -Xcompiler -fPIC -o ofot_tpu_torch/_build/libofot_kernels.so *.o
 
 The library is built at first use (and again when a source or a header is
 newer than it) into ``ofot_tpu_torch/_build/``, which git ignores, and
@@ -67,24 +69,50 @@ def is_stale() -> bool:
             < max(s.stat().st_mtime for s in sources() + headers()))
 
 
+def _run_all(cmds) -> str:
+    """Start every command at once, wait for all; returns their output.
+    Raises RuntimeError with nvcc's stderr when one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=BUILD_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:         # a timeout leaves no compiler running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:"
+                               f"\n{' '.join(cmd)}\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def build(extra_flags=()) -> str:
-    """Compile every source into the shared library; returns nvcc's
-    diagnostics (e.g. ptxas' register report with ``-Xptxas -v``).
-    Raises RuntimeError with nvcc's stderr when the build fails."""
+    """Compile every source (one ``nvcc`` each, in parallel) and link the
+    shared library; returns nvcc's diagnostics (e.g. ptxas' register
+    report with ``-Xptxas -v``).  Raises RuntimeError with nvcc's stderr
+    when the build fails."""
     BUILD_DIR.mkdir(exist_ok=True)
-    # build under a private name, then rename: a concurrent loader never
-    # sees a half-written library
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT_S)
-    if proc.returncode != 0:
+    nvcc, pid = find_nvcc(), os.getpid()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # objects and library under private names, then rename: a concurrent
+    # loader never sees a half-written library
+    objs = [BUILD_DIR / f"{s.stem}.{pid}.o" for s in sources()]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{pid}.tmp"
+    try:
+        report = _run_all([[nvcc, *compile_flags, *extra_flags, "-c", "-o",
+                            str(o), str(s)]
+                           for s, o in zip(sources(), objs)])
+        report += _run_all([[nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                             *map(str, objs)]])
+        os.replace(tmp, library_path())
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, library_path())
-    return proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return report
 
 
 @functools.cache

@@ -344,19 +344,18 @@ def _stepA_spectrum_ingraph(Nt, Ny, Nx, r, reg_epsilon, dtype, modes,
 @contextmanager
 def _tf32_matmul(device):
     """Float32 matmuls on ``device`` in TF32 inside the block, the
-    settings restored after it.  A no-op on the CPU, whose matmuls are
+    setting restored after it (only the cuda matmul flag, as
+    ``sinkhorn._f32_matmul`` does).  A no-op on the CPU, whose matmuls are
     full precision (as JAX's CPU ignores ``Precision.DEFAULT``)."""
     if torch.device(device).type != "cuda":
         yield
         return
     allow = torch.backends.cuda.matmul.allow_tf32
-    precision = torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
-        torch.set_float32_matmul_precision(precision)
 
 
 class StepAPlan:

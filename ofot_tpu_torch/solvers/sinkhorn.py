@@ -81,20 +81,20 @@ class DivergenceResult(NamedTuple):
 
 @contextmanager
 def _f32_matmul(device):
-    """True float32 matmuls on ``device`` inside the block (TF32 off,
-    precision "highest"), the caller's settings restored after it.  A
-    no-op on the CPU, whose matmuls are full precision."""
+    """True float32 matmuls on ``device`` inside the block (cuBLAS' TF32
+    off), the caller's setting restored after it.  Only the cuda matmul
+    flag is read and written: the process-wide precision
+    (``torch.get_float32_matmul_precision``) raises once a caller has
+    mixed it with the flag, and writing it back would mix them for the
+    caller.  A no-op on the CPU, whose matmuls are full precision."""
     if torch.device(device).type != "cuda":
         yield
         return
     allow = torch.backends.cuda.matmul.allow_tf32
-    precision = torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(precision)
         torch.backends.cuda.matmul.allow_tf32 = allow
 
 

@@ -59,6 +59,12 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.solvers.implicit\n"
         "import ofot_tpu_torch.utils.trace\n"
         "import ofot_tpu_torch.utils.colorwheel\n"
+        "import ofot_tpu_torch.cli.pipeline, ofot_tpu_torch.cli.data_diff\n"
+        "import ofot_tpu_torch.cli.create_lum_dataset\n"
+        "import ofot_tpu_torch.cli.normalize_image\n"
+        "import ofot_tpu_torch.cli.print_operators, ofot_tpu_torch.compat\n"
+        "import ofot_tpu_torch.parallel.sweep\n"
+        "import ofot_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"

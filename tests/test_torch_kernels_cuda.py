@@ -20,7 +20,11 @@ Tolerances:
 Every kernel's repeat launches are bitwise-equal (fixed summation orders).
 The GN, HS and GN-pyramid solves, which run no kernel, are held on the
 card against the same solves on the CPU, and so are fixed-iteration
-Sinkhorn solves (both stabilizers) and the device color wheel.
+Sinkhorn solves (both stabilizers) and the device color wheel.  The
+sweep's map mode is held bitwise against single-pair solves on the card,
+and a tiny pipeline run must write every artifact, with one fused-kernel
+launch per FOTO and WFR ALG2 iteration; a Sinkhorn solve of the sweep
+that misses its tolerance is re-solved at float64 on the card.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
 4-byte copies otherwise).
@@ -323,3 +327,121 @@ def test_compute_color_torch_on_card(cuda_device):
     diff = np.abs(got.astype(int) - want.astype(int))
     assert diff.max() <= 1
     assert not (diff.any(-1) & (hue_card == hue_np)).any()
+
+
+def _blob_pairs(n, ny, nx):
+    """n smooth blobs, each moved by its own shift, as float32 stacks."""
+    y, x = np.mgrid[0:ny, 0:nx].astype(np.float64)
+
+    def blob(cy, cx):
+        return np.exp(-(((y - cy) / 6.0) ** 2 + ((x - cx) / 6.0) ** 2))
+
+    shifts = [(2.0, 1.0), (-1.0, 2.0), (1.5, -1.0), (0.5, 0.5)][:n]
+    f1s = np.stack([blob(ny / 2, nx / 2) for _ in shifts])
+    f2s = np.stack([blob(ny / 2 + dy, nx / 2 + dx) for dy, dx in shifts])
+    return f1s.astype(np.float32), f2s.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_map_mode_bitwise_equals_single_pair_on_card(cuda_device):
+    """The sweep's map mode on the card: each pair equals the CLI's
+    single-pair solve bitwise, and the fused kernel launches once per ALG2
+    iteration of the batch."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.parallel import sweep
+    from ofot_tpu_torch.solvers import foto
+
+    f1s, f2s = _blob_pairs(3, 48, 64)
+    params = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=6,
+                  admm_alpha=1.7)
+    kernels.reset_launch_counts()
+    u, v, m, diag = sweep.solve_batch_full(
+        "foto", f1s, f2s, foto_params=dict(params, Nt=4),
+        device=cuda_device)
+    launches = kernels.launch_counts()
+    assert u.device.type == "cuda"
+    assert launches["fused_pointwise"] == int(diag["iterations"].sum())
+    assert sum(launches.values()) == launches["fused_pointwise"]
+    for i in range(3):
+        one = foto.solve(torch.as_tensor(f1s[i], device=cuda_device),
+                         torch.as_tensor(f2s[i], device=cuda_device), 4,
+                         **params, ops=foto.stepA_ops("pallas"))
+        assert diag["iterations"][i] == one.state.iteration
+        for got, want in ((u[i], one.u), (v[i], one.v), (m[i], one.m)):
+            assert torch.equal(got, want), i
+
+
+@pytest.mark.cuda
+def test_pipeline_run_on_card(cuda_device, tmp_path):
+    """A tiny per-sequence sweep on the card (the pipeline's default
+    platform) writes every artifact, runs FOTO and WFR on the fused kernel
+    and launches it once per ALG2 iteration."""
+    import json
+
+    from ofot_tpu_torch.cli import pipeline
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.utils import image
+
+    f1s, f2s = _blob_pairs(2, 48, 64)
+    for i in range(2):
+        d = tmp_path / "data" / "middlebury-1" / "eval-data-gray" / f"s{i}"
+        d.mkdir(parents=True)
+        image.save_grayscale(f1s[i], str(d / "frame10.png"))
+        image.save_grayscale(f2s[i], str(d / "frame11.png"))
+    kernels.reset_launch_counts()
+    assert pipeline.main([
+        "run", "--data-root", str(tmp_path / "data"), "--results",
+        str(tmp_path / "res"), "--datasets", "middlebury-1", "--algos",
+        "GN,foto,WFR,sinkhorn", "--extra-args=--Nt=4 --max-it=6"]) == 0
+    launches = kernels.launch_counts()
+    manifest = json.loads((tmp_path / "res" / "manifest.json").read_text())
+    iterations = 0
+    for i in range(2):
+        out = tmp_path / "res" / "middlebury-1" / f"s{i}"
+        names = ["diff.png", "wfr.growth.png"]
+        for a in ("gn", "foto", "wfr", "sinkhorn"):
+            names += [f"{a}.flo", f"{a}.benchmark.txt", f"{a}.rec.png",
+                      f"{a}.lum.png", f"{a}.png", f".out.{a}.sucess"]
+        assert all((out / n).exists() for n in names)
+        row = manifest[f"middlebury-1/s{i}"]
+        assert all(r["status"] == "ok" for r in row.values())
+        assert row["foto"]["stepA_solver"] == row["WFR"]["stepA_solver"] \
+            == "pallas"
+        iterations += row["foto"]["iterations"] + row["WFR"]["iterations"]
+    assert launches["fused_pointwise"] == iterations
+    assert sum(launches.values()) == iterations
+
+
+@pytest.mark.cuda
+def test_sinkhorn_float64_rescue_runs_on_card(cuda_device, tmp_path,
+                                              monkeypatch):
+    """A float32 Sinkhorn solve of the sweep that misses its tolerance is
+    re-solved at float64 in process on the card, not on the CPU."""
+    import json
+
+    from ofot_tpu_torch.cli import pipeline
+    from ofot_tpu_torch.solvers import sinkhorn
+    from ofot_tpu_torch.utils import image
+
+    seen, real = [], sinkhorn.flow
+
+    def spy(a, b, *args, **kw):
+        seen.append((a.device.type, a.dtype))
+        return real(a, b, *args, **kw)
+
+    monkeypatch.setattr(sinkhorn, "flow", spy)
+    f1s, f2s = _blob_pairs(1, 48, 64)
+    d = tmp_path / "data" / "middlebury-1" / "eval-data-gray" / "s0"
+    d.mkdir(parents=True)
+    image.save_grayscale(f1s[0], str(d / "frame10.png"))
+    image.save_grayscale(f2s[0], str(d / "frame11.png"))
+    # two iterations cannot reach the tolerance in float32
+    assert pipeline.main([
+        "run", "--data-root", str(tmp_path / "data"), "--results",
+        str(tmp_path / "res"), "--datasets", "middlebury-1", "--algos",
+        "sinkhorn", "--extra-args=--max-it=2"]) == 0
+    row = json.loads((tmp_path / "res" / "manifest.json").read_text())[
+        "middlebury-1/s0"]["sinkhorn"]
+    assert row["escalated_f64"] is True
+    assert seen[-1] == ("cuda", torch.float64)
+    assert {dev for dev, _ in seen} == {"cuda"}

@@ -347,7 +347,10 @@ def test_exact_stabilizer_survives_f32_exp_window():
 def test_f32_matmul_context_restores_tf32_settings():
     """On cuda the products run with TF32 off whatever the caller set, and
     the caller's settings come back after (the flags exist without a
-    card, so this holds here too); on the CPU nothing is touched."""
+    card, so this holds here too); on the CPU nothing is touched.  A
+    caller that mixed the process-wide precision with the cuda flag (its
+    getter then raises) can still call it, and a caller that toggles the
+    flag after a call still reads a consistent precision."""
     allow = torch.backends.cuda.matmul.allow_tf32
     precision = torch.get_float32_matmul_precision()
     try:
@@ -355,11 +358,21 @@ def test_f32_matmul_context_restores_tf32_settings():
         torch.set_float32_matmul_precision("high")
         with sinkhorn._f32_matmul("cuda"):
             assert torch.backends.cuda.matmul.allow_tf32 is False
-            assert torch.get_float32_matmul_precision() == "highest"
         assert torch.backends.cuda.matmul.allow_tf32 is True
         assert torch.get_float32_matmul_precision() == "high"
         with sinkhorn._f32_matmul(torch.device("cpu")):
             assert torch.get_float32_matmul_precision() == "high"
+        # a mixed state: the precision set to "high", the flag turned off
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with sinkhorn._f32_matmul("cuda"):
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with sinkhorn._f32_matmul("cuda"):
+            pass
+        torch.backends.cuda.matmul.allow_tf32 = False
+        assert torch.get_float32_matmul_precision() == "highest"
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
         torch.set_float32_matmul_precision(precision)
