@@ -89,6 +89,26 @@ Phases, each printed with its elapsed seconds:
    ``parallel.sweep.solve_batch_full`` on the middlebury-1 pairs bitwise
    against single-pair solves.  Prints per algo and frame size the
    median wall, solver wall and time outside the solve.
+16. lockstep: the lockstep batch (``batch_mode="vmap"``).  Kernels #1
+   (k = 2/3, alpha 1/1.7), #2 and #4 in their batched forms at 8 pairs x
+   (16, 240, 320) with a per-pair r, each against its plain version and
+   against 8 single-pair launches (bitwise: #1's fields and sums, #2's
+   slice kernel, #4), timed beside 8x the single-pair bound and beside the
+   8 single launches.  ``solve_batch_full`` on 8 seeded textured 320x240
+   pairs with distinct shifts at the pipeline's parameters, in map mode
+   and in lockstep, for foto, WFR (``auto``), GN and sinkhorn: each pair
+   stops before its cap, its IE lies below the identity warp's and within
+   0.5% of map mode's, and where its count equals map mode's its flow lies
+   within AEPE 1e-3; ``fused_pointwise`` launched once per lockstep
+   iteration (the slowest pair's count) for foto and WFR, no kernel for GN
+   and Sinkhorn.  FOTO ``dct-fused`` and ``cg-pallas`` (``--max-it`` cut
+   to LOCKSTEP_CG_PALLAS_MAX_IT) at 4 pairs: ``dct_solve`` once per
+   lockstep iteration, ``cg_operator_blocked`` once per lockstep CG step;
+   FOTO with ``auto_r`` at 8 pairs.  A profiler window of lockstep FOTO
+   iterations (device idle share), map against lockstep wall / n per
+   algo, ms per lockstep iteration and peak memory.  Then ``run --batch
+   --batch-mode=vmap`` on phase 15's data with phase 15's checks, each
+   row's IE within 0.5% of the map batch's.
 
 Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
 times it a second time cold, rotating over four input and output sets
@@ -251,23 +271,24 @@ def card_rates(name: str):
     return MEM_BW, F32_RATE
 
 
-def cuda_time_ms(fn) -> float:
-    """Event time of one ``fn()``: the median over 20 samples of the mean
-    of 10 back-to-back calls between two CUDA events, after 3 warm-up
-    calls.  Where the host takes longer to enqueue a call than the card
-    to run it (kernels of a few microseconds), this measures the host."""
+def cuda_time_ms(fn, samples: int = 20, calls: int = 10) -> float:
+    """Event time of one ``fn()``: the median over ``samples`` samples of
+    the mean of ``calls`` back-to-back calls between two CUDA events, after
+    3 warm-up calls.  Where the host takes longer to enqueue a call than
+    the card to run it (kernels of a few microseconds), this measures the
+    host."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(20):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(10):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / 10)
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -276,21 +297,32 @@ def device_time_ms(fn, calls: int = 20, windows: int = 5) -> float:
     on the card (torch.profiler's CUDA activity), summed over ``calls``
     back-to-back calls and divided by ``calls``; the median of ``windows``
     windows, after 3 warm-up calls.  Gaps in which the card waits for the
-    host are not counted."""
+    host are not counted.  A window in which the profiler recorded no
+    device activity at all (seen once on an H100, in a window whose
+    neighbours recorded the same launches) is taken again, up to three
+    times the windows; if none records any, this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(windows):
+    for _ in range(3 * windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
-        times.append(us / 1e3 / calls)
+        if us > 0:
+            times.append(us / 1e3 / calls)
+        if len(times) == windows:
+            break
+    if len(times) < windows:
+        _log(f"  the profiler recorded device activity in {len(times)} of "
+             f"{3 * windows} windows")
+    if not times:
+        raise RuntimeError("the profiler recorded no device activity")
     return statistics.median(times)
 
 
@@ -312,12 +344,19 @@ def _timing_line(label, rec, bound_ms, bound_by, nbytes, ops, extra=""):
          f"{100 * bound_ms / dev:.1f}% by device time")
 
 
-def time_kernel(enqueue, plain, library=None):
+def time_kernel(enqueue, plain, library=None, plain_calls=None):
     """Event and device times of a kernel's enqueue closure, of its plain
-    version and of the library call."""
+    version and of the library call.  ``plain_calls``: time the plain
+    version over this many calls a sample and window (5 samples, 3
+    windows) instead of the kernel's 200 and 100, for a plain version of
+    tens of milliseconds."""
+    if plain_calls is None:
+        plain_ms, plain_dev = cuda_time_ms(plain), device_time_ms(plain)
+    else:
+        plain_ms = cuda_time_ms(plain, samples=5, calls=plain_calls)
+        plain_dev = device_time_ms(plain, calls=plain_calls, windows=3)
     return dict(ms=cuda_time_ms(enqueue), device_ms=device_time_ms(enqueue),
-                plain_ms=cuda_time_ms(plain),
-                plain_device_ms=device_time_ms(plain),
+                plain_ms=plain_ms, plain_device_ms=plain_dev,
                 library_ms=None if library is None else cuda_time_ms(library),
                 library_device_ms=None if library is None
                 else device_time_ms(library))
@@ -1478,12 +1517,15 @@ def _bench_lines(path: Path):
     return dict(ln.split(": ", 1) for ln in path.read_text().splitlines())
 
 
-def check_sweep(label, seqs, results: Path, manifest, launches, batch):
+def check_sweep(label, seqs, results: Path, manifest, launches, batch,
+                lockstep=False):
     """Every artifact, manifest key and bound of one sweep; the fused
-    kernel launched once per FOTO and WFR ALG2 iteration, no other."""
+    kernel launched once per FOTO and WFR ALG2 iteration, no other (a
+    lockstep batch: once per iteration of each group's slowest pair)."""
     if sorted(manifest) != sorted(seqs):
         raise AssertionError(f"{label}: manifest rows {sorted(manifest)}")
     alg2_iterations, ees, escalated = 0, {}, []
+    group_iterations = {}
     for key, (shift, frames, (h, w)) in seqs.items():
         out = results / key
         gt = key.startswith("middlebury-2")
@@ -1541,6 +1583,9 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch):
                                          f"against the zero flow's {ee_zero}")
             if algo in ("foto", "WFR"):
                 alg2_iterations += int(row["iterations"])
+                group = (algo, key.split("/")[0], (h, w))
+                group_iterations[group] = max(group_iterations.get(group, 0),
+                                              int(row["iterations"]))
                 if not batch and row["stepA_solver"] != "pallas":
                     raise AssertionError(f"{label} {key} {algo}: stepA "
                                          f"{row['stepA_solver']}")
@@ -1550,6 +1595,8 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch):
                                      f"error {row['marginal_error']}")
     _log(f"  {label}: EE / zero flow's EE on the ground-truth sequences "
          f"{ees}; re-solved with the exact softmin: {escalated}")
+    if lockstep:
+        alg2_iterations = sum(group_iterations.values())
     check_launches(label, launches, {"fused_pointwise": alg2_iterations})
     return alg2_iterations
 
@@ -1648,6 +1695,484 @@ def run_pipeline_phase(workdir: Path):
                                  "single-pair solve bitwise")
     _log(f"  solve_batch_full(foto) on {len(frames)} pairs: bitwise the "
          f"single-pair solves, iterations {diag['iterations'].tolist()}")
+    return seqs
+
+
+# ------------------------------------------------------------ lockstep
+
+# Phase 16: a lockstep batch of middlebury-1's real group size, on CARD
+# (a CPU rehearsal of the solves sets it to "cpu").
+CARD = "cuda"
+LOCKSTEP_B = 8
+LOCKSTEP_SETS_B = 4
+LOCKSTEP_SHIFTS = [(2, 3), (-3, 1), (1, -2), (0, 2), (3, 0), (-2, -2),
+                   (1, 1), (-1, 3)]
+# The cg-pallas run is cut to this many ALG2 iterations (about 230 lockstep
+# CG steps each); every other run keeps the pipeline's max-it.
+LOCKSTEP_CG_PALLAS_MAX_IT = 10
+# Each pair against map mode: IE within 0.5%; where the iteration counts
+# agree, flows within AEPE 1e-3 (the CPU tests' bound against JAX).  The
+# stepA's products are batched in lockstep, and cuBLAS may round a batched
+# product differently from a single one, which can move a stagnation stop.
+LOCKSTEP_IE_RTOL, LOCKSTEP_AEPE = 5e-3, 1e-3
+
+
+def _uniform(shape, device, seed, low, high):
+    """Seeded uniform float32 values made on the device (a (8, 4) + SHAPE
+    field is 39M values: too many to draw on the host in time)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) * (high - low) \
+        + low
+
+
+def lockstep_inputs(ncomp, relaxed, device):
+    """(LOCKSTEP_B, ncomp) + SHAPE fused-pass inputs with kernel_inputs'
+    ranges."""
+    full = (LOCKSTEP_B, ncomp) + SHAPE
+    return [_uniform(full, device, SEED, -2, 2),
+            _uniform(full, device, SEED + 1, -1, 2),
+            _uniform(full, device, SEED + 2, -2, 1) if relaxed else None]
+
+
+def _pair_r(device):
+    """Per-pair penalties, as auto_r gives them: one float32 a pair."""
+    return torch.tensor([0.6 + 0.1 * i for i in range(LOCKSTEP_B)],
+                        dtype=torch.float32, device=device)
+
+
+def _singles_ms(enqueues):
+    """Event time of B single-pair launches back to back."""
+    def run():
+        for e in enqueues:
+            e()
+    return cuda_time_ms(run), device_time_ms(run)
+
+
+def lockstep_fused_pointwise(device, mem_bw, f32_rate):
+    """Kernel #1 on (8, 1+k) + SHAPE with a per-pair r: against its plain
+    version, and against 8 single-pair launches bitwise (fields and sums);
+    timed at alpha 1.7 beside 8x the single-pair bound."""
+    r = _pair_r(device)
+    worst, recs = 0.0, {}
+    for ncomp in (3, 4):
+        for alpha in (None, ADMM_ALPHA):
+            g, m, qp = lockstep_inputs(ncomp, alpha is not None, device)
+            got = fp.fused_pointwise_batched(g, m, r, alpha, qp)
+            want = fp.fused_pointwise_batched_reference(g, m, r, alpha, qp)
+            torch.cuda.synchronize()
+            case = f"B={LOCKSTEP_B} ncomp={ncomp} alpha={alpha or 1.0}"
+            for a, b, name in zip(got[:2], want[:2], ("q", "mu")):
+                err = (a - b).abs()
+                bad = int((err > KERNEL_ATOL + KERNEL_RTOL * b.abs()).sum())
+                worst = max(worst, float(err.max()))
+                if bad:
+                    raise AssertionError(f"{case}: {name} disagrees with the "
+                                         f"plain version at {bad} points")
+            rel = max(float(((a - b).abs() / b.abs()).max())
+                      for a, b in zip(got[2:], want[2:]))
+            if rel > SUM_RTOL:
+                raise AssertionError(f"{case}: per-pair sums relative "
+                                     f"error {rel:.3e} > {SUM_RTOL}")
+            for i in range(LOCKSTEP_B):
+                one = fp.fused_pointwise(g[i], m[i], float(r[i]), alpha,
+                                         None if qp is None else qp[i])
+                if not all(torch.equal(a[i], b) for a, b in zip(got, one)):
+                    raise AssertionError(f"{case}: pair {i} is not its "
+                                         "single-pair launch bitwise")
+            _log(f"  fused_pointwise {case}: max |kernel - plain| "
+                 f"{float(max((a - b).abs().max() for a, b in zip(got[:2], want[:2]))):.3e}"
+                 f", sums rel {rel:.3e}; each pair bitwise its single "
+                 "launch")
+            if alpha is not None:
+                enqueue, _ = fp.prepare_launch(g, m, r, alpha, qp,
+                                               batched=True)
+                rec = time_kernel(enqueue, lambda: (
+                    fp.fused_pointwise_batched_reference(g, m, r, alpha,
+                                                         qp)), plain_calls=2)
+                singles = [fp.prepare_launch(g[i], m[i], float(r[i]), alpha,
+                                             qp[i])[0]
+                           for i in range(LOCKSTEP_B)]
+                single_ms, single_dev = _singles_ms(singles)
+                parts = [fused_pointwise_bound(g[i], m[i], float(r[i]),
+                                               alpha, qp[i], mem_bw,
+                                               f32_rate)
+                         for i in range(LOCKSTEP_B)]
+                nbytes = sum(p[2] for p in parts)
+                ops = sum(p[3] for p in parts)
+                bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
+                recs[ncomp] = dict(rec, bound_ms=bound_ms, bound_by=bound_by,
+                                   singles_ms=single_ms,
+                                   singles_device_ms=single_dev)
+                _timing_line(f"fused_pointwise {case}", rec, bound_ms,
+                             bound_by, nbytes, ops,
+                             f"; {LOCKSTEP_B} single launches {single_ms:.4f}"
+                             f" ms by events, {single_dev:.4f} ms device")
+            del g, m, qp, got, want
+    return worst, recs
+
+
+def lockstep_dct_solve(device, mem_bw, f32_rate):
+    """Kernel #2 on 8 x SHAPE (128 slices) with a per-pair r: the whole
+    solve against its plain version; the slice kernel against 8
+    single-pair launches on the same t-transformed slices, bitwise; the
+    whole solve against 8 single-pair solves (the t products batched);
+    timed beside 8x the single-pair bound."""
+    eps = 1e-2
+    r = _pair_r(device)
+    F = _uniform((LOCKSTEP_B,) + SHAPE, device, SEED + 1, -2, 2)
+    got = ds.dct_solve(F, r, eps)
+    want = ds.dct_solve_reference(F, r, eps)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    if not rel <= DCT_RTOL:
+        raise AssertionError(f"batched dct_solve: relative error {rel:.3e} "
+                             f"> {DCT_RTOL}")
+    p = ds._plan_for(F, r, eps)
+    Fz = ds.t_forward(F, p)
+    enqueue, out = ds.prepare_launch(Fz, p, r)
+    enqueue()
+    singles, whole_gap = [], 0.0
+    for i in range(LOCKSTEP_B):
+        pi = ds.plan(SHAPE, F.dtype, F.device, float(r[i]), eps)
+        e, o = ds.prepare_launch(Fz[i].contiguous(), pi)
+        e()
+        singles.append(e)
+        if not torch.equal(o, out[i]):
+            raise AssertionError(f"batched dct_solve slice kernel: pair {i} "
+                                 "is not its single-pair launch bitwise")
+        whole_gap = max(whole_gap, float(
+            (ds.dct_solve(F[i], float(r[i]), eps) - got[i]).abs().max()))
+    _log(f"  dct_solve B={LOCKSTEP_B} x {SHAPE}: max |kernel - plain| "
+         f"{err:.3e}, / max|phi| {rel:.3e}; slice kernel bitwise the single "
+         f"launches; whole solve against single solves max |diff| "
+         f"{whole_gap:.3e} (batched t products)")
+    # the library call, as for the single-pair kernel: the port's cuBLAS
+    # spectral stepA (``dct``), here on the batch with per-pair spectra
+    from ofot_tpu_torch.solvers.lockstep import PerPair
+    rp = PerPair(r.tolist(), F)
+    dct_ops = foto.lockstep_ops(foto.stepA_ops("dct"))
+    fused_ops = foto.lockstep_ops(foto.stepA_ops("dct-fused"))
+    rec = time_kernel(enqueue, lambda: ds.slice_solve_reference(Fz, p, r),
+                      lambda: dct_ops.stepA_solve(F, rp, eps, 0, 0))
+
+    def stepA():
+        return fused_ops.stepA_solve(F, rp, eps, 0, 0)
+
+    stepA_ms, stepA_device_ms = cuda_time_ms(stepA), device_time_ms(stepA)
+    single_ms, single_dev = _singles_ms(singles)
+    Nt, Ny, Nx = SHAPE
+    n = LOCKSTEP_B * Nt * Ny * Nx
+    mm_ops = 2 * n * (2 * Ny + 2 * Nx)
+    nbytes = 4 * (2 * n + LOCKSTEP_B * (2 * Ny * Ny + 2 * Nx * Nx + Nt
+                                        + Ny + Nx))
+    bound_ms = 1e3 * max(nbytes / mem_bw, 3 * mm_ops / TF32_RATE
+                         + 5 * n / f32_rate)
+    bound_by = "bytes" if nbytes / mem_bw >= 3 * mm_ops / TF32_RATE \
+        else "operations"
+    _timing_line(f"dct_solve B={LOCKSTEP_B}", rec, bound_ms, bound_by,
+                 nbytes, 3 * mm_ops + 5 * n,
+                 f"; {LOCKSTEP_B} single launches {single_ms:.4f} ms by "
+                 f"events, {single_dev:.4f} ms device")
+    _log(f"  lockstep stepA solve: dct-fused (t products + kernel) "
+         f"{stepA_ms:.4f} ms by events, {stepA_device_ms:.4f} ms device; "
+         f"dct (cuBLAS fp32 matmuls) {rec['library_ms']:.4f} ms by events, "
+         f"{rec['library_device_ms']:.4f} ms device")
+    return dict(rec, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                singles_ms=single_ms, singles_device_ms=single_dev,
+                stepA_ms=stepA_ms, stepA_device_ms=stepA_device_ms)
+
+
+def lockstep_cg_operator(device, mem_bw, f32_rate):
+    """Kernel #4 on 8 x SHAPE with a per-pair r: against its plain version
+    (the 'N' time rows at each pair's own first and last plane) and against
+    8 single-pair launches bitwise; timed beside 8x the single bound."""
+    eps = 1e-2
+    r = _pair_r(device)
+    x = _uniform((LOCKSTEP_B,) + SHAPE, device, SEED + 3, -2, 2)
+    # extreme first and last planes: a stencil reading across pairs shows
+    x[:, 0] += 50.0
+    x[:, -1] -= 50.0
+    got = cgk.cg_operator_blocked(x, r, eps)
+    want = cgk.cg_operator_reference(x, r, eps)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err < CG_ATOL * 50:
+        raise AssertionError(f"batched cg_operator: error {err:.3e}")
+    singles = []
+    for i in range(LOCKSTEP_B):
+        e, o = cgk.prepare_launch(x[i], float(r[i]), eps)
+        e()
+        singles.append(e)
+        if not torch.equal(o, got[i]):
+            raise AssertionError(f"batched cg_operator: pair {i} is not its "
+                                 "single-pair launch bitwise")
+    _log(f"  cg_operator B={LOCKSTEP_B} x {SHAPE} (planes 0 and Nt-1 at "
+         f"+-50): max |kernel - plain| {err:.3e} (tol {CG_ATOL * 50:g}, "
+         "50x the operand scale); each pair bitwise its single launch")
+    enqueue, _ = cgk.prepare_launch(x, r, eps)
+    rec = time_kernel(enqueue, lambda: cgk.cg_operator_reference(x, r, eps),
+                      plain_calls=2)
+    single_ms, single_dev = _singles_ms(singles)
+    ops = 14 * x.numel()
+    nbytes = 2 * x.numel() * x.element_size()
+    bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
+    _timing_line(f"cg_operator B={LOCKSTEP_B}", rec, bound_ms, bound_by,
+                 nbytes, ops,
+                 f"; {LOCKSTEP_B} single launches {single_ms:.4f} ms by "
+                 f"events, {single_dev:.4f} ms device")
+    return dict(rec, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                singles_ms=single_ms, singles_device_ms=single_dev)
+
+
+def lockstep_pairs(B=LOCKSTEP_B):
+    """B seeded textured 320x240 pairs, pair i moved by LOCKSTEP_SHIFTS[i],
+    as float32 (B, 240, 320) stacks."""
+    _, h, w = SHAPE
+    pairs = [textured_pair(h, w, shift=s, seed=SEED + 10 + i)
+             for i, s in enumerate(LOCKSTEP_SHIFTS[:B])]
+    return (np.stack([a for a, _ in pairs]).astype(np.float32),
+            np.stack([b for _, b in pairs]).astype(np.float32))
+
+
+def _ies(f1s, f2s, u, v, m):
+    """Per pair (IE of the warp, IE of the identity warp)."""
+    from ofot_tpu_torch.utils import warp
+    _, h, w = SHAPE
+    out = []
+    for i in range(len(f1s)):
+        a = torch.as_tensor(f1s[i], device=CARD)
+        rec = np.clip(warp.apply_flow(a, u[i], v[i], m[i]).cpu().numpy(),
+                      0, 1)
+        out.append((metrics.IE(w, h, rec, f2s[i]),
+                    metrics.IE(w, h, f1s[i], f2s[i])))
+    return out
+
+
+def _timed_batch(algo, f1s, f2s, kw, mode):
+    """solve_batch_full on the card, every launch count set to 0 just
+    before and read just after -> (u, v, m, diag, seconds, launches)."""
+    from ofot_tpu_torch.parallel import sweep
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    u, v, m, diag = sweep.solve_batch_full(algo, f1s, f2s, batch_mode=mode,
+                                           device=CARD, **kw)
+    u.cpu()
+    seconds = time.time() - t0
+    return u, v, m, diag, seconds, kernels.launch_counts()
+
+
+def _batch_kw(algo, **changes):
+    """The pipeline's canonical batch parameters for ``algo``."""
+    from ofot_tpu_torch.cli import pipeline
+    fp_, gp, wp, sp, _ = pipeline._batched_params("")
+    key, params = {"foto": ("foto_params", fp_), "WFR": ("wfr_params", wp),
+                   "GN": ("gn_params", gp),
+                   "sinkhorn": ("sinkhorn_params", sp)}[algo]
+    return {key: dict(params, **changes)}
+
+
+def lockstep_solves():
+    """Each algo at the pipeline's parameters on the 8 pairs, in map mode
+    and in lockstep; per pair the stop, IE against the identity warp's and
+    map mode's, AEPE where the iterations agree; launches of the lockstep
+    run; map against lockstep wall / n and peak memory."""
+    f1s, f2s = lockstep_pairs()
+    out = {}
+    for algo in ("foto", "WFR", "GN", "sinkhorn"):
+        kw = _batch_kw(algo)
+        um, vm, mm, dm, map_s, _ = _timed_batch(algo, f1s, f2s, kw, "map")
+        torch.cuda.reset_peak_memory_stats()
+        u, v, m, d, lock_s, launches = _timed_batch(algo, f1s, f2s, kw,
+                                                    "vmap")
+        peak = torch.cuda.max_memory_allocated()
+        count = "inner_iterations" if algo == "GN" else "iterations"
+        its, map_its = d[count].tolist(), dm[count].tolist()
+        if algo in ("foto", "WFR"):
+            check_launches(f"lockstep {algo}", launches,
+                           {"fused_pointwise": max(its)})
+            cap = kw[f"{'foto' if algo == 'foto' else 'wfr'}_params"][
+                "max_it"]
+        else:
+            check_launches(f"lockstep {algo}", launches, {})
+            cap = 5000 if algo == "GN" else kw["sinkhorn_params"]["max_iter"]
+        ies, map_ies = _ies(f1s, f2s, u, v, m), _ies(f1s, f2s, um, vm, mm)
+        worst_aepe, ie_gaps = 0.0, []
+        for i in range(LOCKSTEP_B):
+            (ie, ident), (ie_map, _) = ies[i], map_ies[i]
+            gap = abs(ie - ie_map) / ie_map
+            ie_gaps.append(gap)
+            if not its[i] < cap or (algo == "GN" and not d["converged"][i]):
+                raise AssertionError(f"lockstep {algo} pair {i}: did not "
+                                     f"stop before {cap} ({its[i]})")
+            if not ie < ident:
+                raise AssertionError(f"lockstep {algo} pair {i}: IE {ie} "
+                                     f"not below the identity's {ident}")
+            if not gap <= LOCKSTEP_IE_RTOL:
+                raise AssertionError(f"lockstep {algo} pair {i}: IE {ie} "
+                                     f"against map mode's {ie_map}")
+            if its[i] == map_its[i]:
+                aepe = float(torch.hypot(u[i] - um[i], v[i] - vm[i]).mean())
+                worst_aepe = max(worst_aepe, aepe)
+                if not aepe < LOCKSTEP_AEPE:
+                    raise AssertionError(f"lockstep {algo} pair {i}: AEPE "
+                                         f"{aepe} against map mode")
+        n = LOCKSTEP_B
+        per_it = (f", {1e3 * lock_s / max(its):.4f} ms per lockstep "
+                  f"iteration ({max(its)} iterations)"
+                  if algo in ("foto", "WFR") else "")
+        _log(f"  lockstep {algo}: {count} lockstep {its} / map {map_its}; "
+             f"launches {launches}; worst IE gap to map "
+             f"{max(ie_gaps):.3e}, worst AEPE where the counts agree "
+             f"{worst_aepe:.3e}")
+        _log(f"  lockstep {algo} B={n}: wall / n {lock_s / n:.4f} s against "
+             f"map mode's {map_s / n:.4f} s ({map_s / lock_s:.2f}x){per_it};"
+             f" peak memory {peak / 2**30:.3f} GiB; IE "
+             f"{[round(x[0], 5) for x in ies]}")
+        out[algo] = dict(iterations=its, map_iterations=map_its,
+                         launches=launches, seconds=lock_s, map_seconds=map_s,
+                         peak=peak)
+    return out
+
+
+def lockstep_other_sets():
+    """FOTO dct-fused and cg-pallas (max-it cut) at B = 4, and FOTO with
+    auto_r at B = 8: dct_solve once per lockstep iteration,
+    cg_operator_blocked once per lockstep CG step (counted by wrapping the
+    batched CG), fused_pointwise once per lockstep iteration."""
+    from ofot_tpu_torch.solvers import cg as cg_mod
+    f1s, f2s = lockstep_pairs()
+    a, b = f1s[:LOCKSTEP_SETS_B], f2s[:LOCKSTEP_SETS_B]
+    out = {}
+    _, h, w = SHAPE
+
+    def check(label, u, v, m, d, f1, f2, cap):
+        its = d["iterations"].tolist()
+        for i, (ie, ident) in enumerate(_ies(f1, f2, u, v, m)):
+            if not (np.isfinite(ie) and ie < ident):
+                raise AssertionError(f"{label} pair {i}: IE {ie} against "
+                                     f"the identity's {ident}")
+        if cap is not None and not max(its) < cap:
+            raise AssertionError(f"{label}: iterations {its} reach {cap}")
+        return its
+
+    kw = _batch_kw("foto", stepA_solver="dct-fused")
+    u, v, m, d, s, launches = _timed_batch("foto", a, b, kw, "vmap")
+    its = check("lockstep dct-fused", u, v, m, d, a, b, 200)
+    check_launches("lockstep dct-fused", launches, {"dct_solve": max(its)})
+    _log(f"  lockstep foto dct-fused B={LOCKSTEP_SETS_B}: iterations {its}, "
+         f"launches {launches}, {s:.4f} s")
+    out["dct-fused"] = dict(iterations=its, launches=launches, seconds=s)
+
+    steps = []
+    real = foto._Lockstep.cg_solve
+
+    def counted(*args, **kwargs):
+        res = real(*args, **kwargs)
+        # the lockstep loop runs until its slowest pair stops
+        steps.append(int(res.iterations.max()))
+        return res
+
+    foto._Lockstep.cg_solve = staticmethod(counted)
+    try:
+        kw = _batch_kw("foto", stepA_solver="cg-pallas",
+                       max_it=LOCKSTEP_CG_PALLAS_MAX_IT)
+        u, v, m, d, s, launches = _timed_batch("foto", a, b, kw, "vmap")
+    finally:
+        foto._Lockstep.cg_solve = staticmethod(real)
+    its = check("lockstep cg-pallas", u, v, m, d, a, b, None)
+    check_launches("lockstep cg-pallas", launches,
+                   {"cg_operator_blocked": sum(steps)})
+    _log(f"  lockstep foto cg-pallas B={LOCKSTEP_SETS_B}, max-it cut to "
+         f"{LOCKSTEP_CG_PALLAS_MAX_IT} (the pipeline's 200): iterations "
+         f"{its}, per-pair CG steps {d['inner_iterations'].tolist()}, "
+         f"lockstep CG steps {sum(steps)}, launches {launches}, {s:.4f} s "
+         f"({1e3 * s / max(sum(steps), 1):.4f} ms per lockstep CG step)")
+    out["cg-pallas"] = dict(iterations=its, launches=launches, seconds=s,
+                            steps=sum(steps))
+
+    kw = _batch_kw("foto", auto_r=True)
+    u, v, m, d, s, launches = _timed_batch("foto", f1s, f2s, kw, "vmap")
+    its = check("lockstep auto_r", u, v, m, d, f1s, f2s, None)
+    check_launches("lockstep auto_r", launches,
+                   {"fused_pointwise": max(its)})
+    _log(f"  lockstep foto auto_r B={LOCKSTEP_B}: iterations {its}, "
+         f"launches {launches}, {s:.4f} s")
+    out["auto_r"] = dict(iterations=its, launches=launches, seconds=s)
+    return out
+
+
+def _timed(fn, *args):
+    """``fn(*args)``, its seconds printed."""
+    t0 = time.time()
+    out = fn(*args)
+    _log(f"  ({fn.__name__} {time.time() - t0:.2f} s)")
+    return out
+
+
+def lockstep_single_pair():
+    """A lockstep batch of one pair against the single-pair solve, FOTO at
+    the pipeline's parameters, each warm, twice in turns: what the
+    lockstep loop's own work (the select of every field, the per-pair
+    counters) costs where no pair shares a launch."""
+    f1s, f2s = lockstep_pairs(1)
+    kw = _batch_kw("foto")
+    times = {"map": [], "vmap": []}
+    for mode in ("map", "vmap", "vmap", "map"):
+        _, _, _, d, s, _ = _timed_batch("foto", f1s, f2s, kw, mode)
+        times[mode].append(s)
+    _log(f"  one pair, FOTO ({int(d['iterations'][0])} iterations): "
+         f"lockstep {[round(t, 4) for t in times['vmap']]} s, map "
+         f"{[round(t, 4) for t in times['map']]} s")
+
+
+def profile_lockstep():
+    """Device busy share over a window of lockstep FOTO iterations at B=8
+    (pallas set, no stop)."""
+    f1s, f2s = lockstep_pairs()
+    a, b = (torch.as_tensor(x, device=CARD) for x in (f1s, f2s))
+    kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA,
+              convergence_tol=0.0, ops=foto.stepA_ops("pallas"))
+    foto.solve_potential_batched(a, b, SHAPE[0], max_it=2, **kw)
+    profile_window(f"lockstep foto pallas B={LOCKSTEP_B}", lambda k: (
+        foto.solve_potential_batched(a, b, SHAPE[0], max_it=k, **kw)),
+        PROFILE_ITERATIONS, top=8, unit="lockstep ALG2 iterations")
+
+
+def run_lockstep_pipeline(workdir: Path, seqs):
+    """``run --batch --batch-mode=vmap`` on phase 15's data with phase 15's
+    checks; each row's IE against the map-mode batch's."""
+    data, batched = workdir / "sweep-data", workdir / "sweep-batch"
+    results = workdir / "sweep-vmap"
+    man, launches, seconds = run_sweep(data, results, "--batch",
+                                       "--batch-mode=vmap")
+    alg2 = check_sweep("vmap batch", seqs, results, man, launches, True,
+                       lockstep=True)
+    mman = json.loads((batched / "manifest.json").read_text())
+    gaps, moved = [], []
+    for key in seqs:
+        for algo in SWEEP_ALGOS:
+            if man[key][algo]["batch_mode"] != "vmap":
+                raise AssertionError(f"vmap batch {key} {algo}: row "
+                                     f"{man[key][algo]}")
+            ie = float(_bench_lines(results / key /
+                                    f"{algo.lower()}.benchmark.txt")["IE"])
+            ie_map = float(_bench_lines(batched / key /
+                                        f"{algo.lower()}.benchmark.txt")["IE"])
+            gaps.append(abs(ie - ie_map) / ie_map)
+            if not gaps[-1] <= LOCKSTEP_IE_RTOL:
+                raise AssertionError(f"vmap batch {key} {algo}: IE {ie} "
+                                     f"against the map batch's {ie_map}")
+            count = "inner_iterations" if algo == "GN" else "iterations"
+            if man[key][algo][count] != mman[key][algo][count]:
+                moved.append(f"{key} {algo} {man[key][algo][count]}/"
+                             f"{mman[key][algo][count]}")
+    _log(f"  vmap batch: {seconds:.2f} s, launches {launches} (FOTO + WFR "
+         f"lockstep iterations {alg2}); worst IE gap to the map batch "
+         f"{max(gaps):.3e}; counts that differ from map (vmap/map): "
+         f"{moved or 'none'}")
+    sweep_times(man, seqs, seconds, True)
 
 
 def main() -> int:
@@ -1737,7 +2262,18 @@ def main() -> int:
             profile_sinkhorn(rho)
 
         with Phase("15 pipeline"):
-            run_pipeline_phase(workdir)
+            seqs = run_pipeline_phase(workdir)
+
+        with Phase("16 lockstep"):
+            lock_worst, lock_fp = _timed(lockstep_fused_pointwise, device,
+                                         mem_bw, f32_rate)
+            lock_dct = _timed(lockstep_dct_solve, device, mem_bw, f32_rate)
+            lock_cg = _timed(lockstep_cg_operator, device, mem_bw, f32_rate)
+            lock_solves = _timed(lockstep_solves)
+            lock_sets = _timed(lockstep_other_sets)
+            _timed(lockstep_single_pair)
+            _timed(profile_lockstep)
+            _timed(run_lockstep_pipeline, workdir, seqs)
 
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path
@@ -1754,6 +2290,13 @@ def main() -> int:
                 "device_ms": rec["device_ms"],
                 "plain_device_ms": rec["plain_device_ms"],
                 "library_device_ms": rec["library_device_ms"]}
+
+    def lockstep_entry(e):
+        rec = {"fused_pointwise_batched": lock_fp[3],
+               "dct_solve_batched": lock_dct,
+               "cg_operator_batched": lock_cg}[e["name"]]
+        return dict(e, batch=LOCKSTEP_B, singles_ms=rec["singles_ms"],
+                    singles_device_ms=rec["singles_device_ms"])
 
     record = {"kernels": [
         entry("fused_pointwise", "fused_pointwise.cu", 224,
@@ -1778,6 +2321,23 @@ def main() -> int:
         entry("cg_operator_blocked", "cg_operator.cu", 528,
               paths["foto-cg-pallas"]["launches"]["cg_operator_blocked"],
               cg_err, cg_recs["cg_operator_blocked"]),
+        # the lockstep forms (phase 16, B = 8 pairs a launch): launches
+        # from the lockstep FOTO run at the pipeline's parameters and from
+        # the lockstep dct-fused and cg-pallas runs (B = 4)
+        lockstep_entry(entry("fused_pointwise_batched", "fused_pointwise.cu",
+                             224, lock_solves["foto"]["launches"][
+                                 "fused_pointwise"], lock_worst,
+                             lock_fp[3])),
+        dict(lockstep_entry(entry(
+            "dct_solve_batched", "dct_solve.cu", 355,
+            lock_sets["dct-fused"]["launches"]["dct_solve"],
+            lock_dct["max_abs_err"], lock_dct)),
+            stepA_ms=lock_dct["stepA_ms"],
+            stepA_device_ms=lock_dct["stepA_device_ms"]),
+        lockstep_entry(entry("cg_operator_batched", "cg_operator.cu", 528,
+                             lock_sets["cg-pallas"]["launches"][
+                                 "cg_operator_blocked"],
+                             lock_cg["max_abs_err"], lock_cg)),
     ]}
     _log(f"chip_smoke wall {time.time() - t_start:.2f} s")
     _log(smi)

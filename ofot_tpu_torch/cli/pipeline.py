@@ -19,8 +19,9 @@ dependency:
     png}) with the same ``.out.<algo>.sucess`` flag-file resume semantics
     [sic — the reference's spelling], plus a structured ``manifest.json``;
     ``run --batch`` solves each dataset's same-shape sequences through
-    ``parallel.sweep.solve_batch_full`` in ``map`` mode (one pair after
-    another on the device, bitwise the per-sequence solves);
+    ``parallel.sweep.solve_batch_full``: in ``map`` mode (the default; one
+    pair after another on the device, bitwise the per-sequence solves) or,
+    with ``--batch-mode=vmap``, as one lockstep batch;
   * ``restart``: wipe results and re-run;
   * ``merge-manifests``: merge the per-host manifest shards.
 
@@ -617,9 +618,10 @@ def _batched_params(extra: str):
 
 def cmd_run_batch(args) -> int:
     """Batched sweep: all same-shape sequences of a dataset solved by one
-    ``sweep.solve_batch_full`` call in ``map`` mode — the pairs one after
-    another on the device, bitwise the per-sequence solves, with the
-    frames, warps and metrics of the whole group handled together."""
+    ``sweep.solve_batch_full`` call — in ``map`` mode the pairs one after
+    another on the device, bitwise the per-sequence solves; in ``vmap``
+    mode one lockstep batch — with the frames, warps and metrics of the
+    whole group handled together."""
     import time as _time
 
     import numpy as np
@@ -630,10 +632,6 @@ def cmd_run_batch(args) -> int:
     from ofot_tpu_torch.parallel.multihost import partition_keys
     from ofot_tpu_torch.utils import image as img, flo as flo_mod, metrics, warp
 
-    if args.batch_mode == "vmap":
-        print(f"ERROR: --batch-mode=vmap: {sweep_mod.VMAP_NOT_PORTED}",
-              file=sys.stderr)
-        return 2
     if args.data_parallel > 1:
         print(f"ERROR: --data-parallel={args.data_parallel}: "
               f"{sweep_mod.MESH_NOT_PORTED}", file=sys.stderr)
@@ -872,7 +870,7 @@ def main(argv=None) -> int:
                        default="map",
                        help="batch execution: 'map' solves the pairs one "
                             "after another on the device (default); "
-                            "'vmap' (a lockstep batch) is not ported yet")
+                            "'vmap' solves them as one lockstep batch")
         r.set_defaults(fn=fn)
 
     m = sub.add_parser("merge-manifests",

@@ -32,6 +32,14 @@
 // Every output is the plain version's expression in its order (t, then x,
 // then y), the same in both forms, so repeat launches are bitwise-equal.
 //
+// A lockstep batch of B pairs, (B, Nt, Ny, Nx) pair-major, is one launch
+// over its B*Nt planes: a plane's t index is its index mod Nt, so the 'N'
+// time rows apply at each pair's own first and last plane and never read
+// across pairs, and pair b's r and r*eps come from r_pairs[b] and
+// reps_pairs[b] where per-pair values are given.  Each pair's output is
+// bitwise that of a single-pair launch; the bound is B times the
+// single-pair bound.
+//
 // Plain C interface (no PyTorch header); the launcher returns
 // cudaGetLastError().
 
@@ -72,13 +80,19 @@ __device__ __forceinline__ float4 load4(const float* p) {
 // Nx % 4 == 0, x and y 16-byte aligned: one thread per 4 consecutive x.
 __global__ void __launch_bounds__(kThreads)
 cg_operator_quad_kernel(const float* __restrict__ x, float* __restrict__ y,
-                        int Nt, int Ny, int Nx, float r, float reps) {
+                        int planes, int Nt, int Ny, int Nx, float r,
+                        float reps, const float* __restrict__ r_pairs,
+                        const float* __restrict__ reps_pairs) {
   const int nq = Nx / 4;
   const long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (q >= (long long)Nt * Ny * nq) return;
+  if (q >= (long long)planes * Ny * nq) return;
   const int xq = (int)(q % nq);
   const long long row = q / nq;
-  const int iy = (int)(row % Ny), it = (int)(row / Ny);
+  const int iy = (int)(row % Ny), ip = (int)(row / Ny), it = ip % Nt;
+  if (r_pairs != nullptr) {
+    r = r_pairs[ip / Nt];
+    reps = reps_pairs[ip / Nt];
+  }
   const long long plane = (long long)Ny * Nx;
   const long long i = row * Nx + 4 * xq;
 
@@ -113,12 +127,18 @@ cg_operator_quad_kernel(const float* __restrict__ x, float* __restrict__ y,
 // Any field: one thread per point.
 __global__ void __launch_bounds__(kThreads)
 cg_operator_point_kernel(const float* __restrict__ x, float* __restrict__ y,
-                         int Nt, int Ny, int Nx, float r, float reps) {
+                         int planes, int Nt, int Ny, int Nx, float r,
+                         float reps, const float* __restrict__ r_pairs,
+                         const float* __restrict__ reps_pairs) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long plane = (long long)Ny * Nx;
-  if (i >= Nt * plane) return;
+  if (i >= planes * plane) return;
   const int ix = (int)(i % Nx);
-  const int iy = (int)((i / Nx) % Ny), it = (int)(i / plane);
+  const int iy = (int)((i / Nx) % Ny), ip = (int)(i / plane), it = ip % Nt;
+  if (r_pairs != nullptr) {
+    r = r_pairs[ip / Nt];
+    reps = reps_pairs[ip / Nt];
+  }
   const bool t0 = it == 0, t1 = it == Nt - 1;
   const bool x0 = ix == 0, x1 = ix == Nx - 1;
   const bool y0 = iy == 0, y1 = iy == Ny - 1;
@@ -136,22 +156,28 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// x and y are contiguous float32 (Nt, Ny, Nx) arrays, every extent >= 2.
-// reps = r * eps.  Returns cudaGetLastError().
-int ofot_cg_operator(const float* x, float* y, int Nt, int Ny, int Nx,
-                     float r, float reps, cudaStream_t stream) {
-  if (Nt < 2 || Ny < 2 || Nx < 2) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)Nt * Ny * Nx;
+// x and y are contiguous float32 (batch, Nt, Ny, Nx) arrays, every extent
+// >= 2.  reps = r * eps.  r_pairs == nullptr: every pair uses r and reps;
+// else pair b uses r_pairs[b] and reps_pairs[b] (batch floats each).
+// Returns cudaGetLastError().
+int ofot_cg_operator(const float* x, float* y, int batch, int Nt, int Ny,
+                     int Nx, float r, float reps, const float* r_pairs,
+                     const float* reps_pairs, cudaStream_t stream) {
+  if (batch < 1 || Nt < 2 || Ny < 2 || Nx < 2 ||
+      (long long)batch * Nt > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int planes = batch * Nt;
+  const long long n = (long long)planes * Ny * Nx;
   if (Nx % 4 == 0 && aligned16(x) && aligned16(y)) {
     const long long blocks = (n / 4 + kThreads - 1) / kThreads;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     cg_operator_quad_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, y, Nt, Ny, Nx, r, reps);
+        x, y, planes, Nt, Ny, Nx, r, reps, r_pairs, reps_pairs);
   } else {
     const long long blocks = (n + kThreads - 1) / kThreads;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     cg_operator_point_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, y, Nt, Ny, Nx, r, reps);
+        x, y, planes, Nt, Ny, Nx, r, reps, r_pairs, reps_pairs);
   }
   return (int)cudaGetLastError();
 }

@@ -55,8 +55,16 @@
 // were 128-wide tiles and splitting K across two or four warp groups of a
 // block; 3 or 4 stages were no faster than 2.
 
+// A lockstep batch of B pairs is one call over B*Nt slices (grid z, at
+// most 65535): slice s is t-frequency s % Nt of pair s / Nt, and its
+// divisor reads lt[s % Nt] and, where per-pair values are given, that
+// pair's r and r*eps.  Each slice runs the same steps as in a single-pair
+// call, so each pair's output is bitwise that of a single-pair call on the
+// same t-transformed field.
+//
 // Plain C interface (no PyTorch header): raw device pointers, the extents,
-// r, r*eps and the stream; the launcher returns cudaGetLastError().
+// r, r*eps (or their per-pair arrays) and the stream; the launcher returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,8 +121,11 @@ struct Spectrum {
   const float* lt;   // (Nt,) Neumann eigenvalues along t
   const float* ly;   // (Ny,)
   const float* lx;   // (Nx,)
+  int nt;            // Nt: slice s is t-frequency s % nt of pair s / nt
   float r;
   float reps;        // r * eps
+  const float* r_pairs;     // per-pair r and r * eps, or nullptr
+  const float* reps_pairs;
 };
 
 // One operand of a batched product: a row-major (rows x cols) float32
@@ -281,8 +292,13 @@ gemm_3xtf32_kernel(Operand A, Operand B, float* __restrict__ C, int M,
         if (m >= M || n >= N) continue;
         float v = acc[i][j][e];
         if (kDivide) {
-          const float sb = -spec.r * (spec.ly[m] + spec.lx[n]) + spec.reps;
-          v = v / (sb + -spec.r * spec.lt[batch]);
+          float r = spec.r, reps = spec.reps;
+          if (spec.r_pairs != nullptr) {
+            r = spec.r_pairs[batch / spec.nt];
+            reps = spec.reps_pairs[batch / spec.nt];
+          }
+          const float sb = -r * (spec.ly[m] + spec.lx[n]) + reps;
+          v = v / (sb + -r * spec.lt[batch % spec.nt]);
         }
         C[(long long)m * N + n] = v;
       }
@@ -317,36 +333,41 @@ cudaError_t launch_gemm(const Operand& A, const Operand& B, float* C, int M,
 
 extern "C" {
 
-// Solve every t-frequency slice of Fz (Nt, Ny, Nx) into out (same shape),
-// using tmp (same shape) as scratch.  Cy (Ny, Ny) and Cx (Nx, Nx) are the
-// DCT-II analysis matrices (rows = frequencies), CyT and CxT their
+// Solve every t-frequency slice of Fz (batch, Nt, Ny, Nx) into out (same
+// shape), using tmp (same shape) as scratch.  Cy (Ny, Ny) and Cx (Nx, Nx)
+// are the DCT-II analysis matrices (rows = frequencies), CyT and CxT their
 // transposes; lt, ly, lx the Neumann eigenvalue vectors; reps = r * eps.
-// All arrays are contiguous float32 on one device and must not overlap.
-// Four launches on `stream`; returns the first launch error, else
-// cudaGetLastError().
+// r_pairs == nullptr: every pair uses r and reps; else pair b uses
+// r_pairs[b] and reps_pairs[b] (batch floats each).  All arrays are
+// contiguous float32 on one device and must not overlap.  Four launches on
+// `stream`; returns the first launch error, else cudaGetLastError().
 int ofot_dct_solve(const float* Fz, float* out, float* tmp, const float* Cy,
                    const float* CyT, const float* Cx, const float* CxT,
-                   const float* lt, const float* ly, const float* lx, int Nt,
-                   int Ny, int Nx, float r, float reps, cudaStream_t stream) {
-  if (Nt < 1 || Ny < 1 || Nx < 1 || Nt > 65535)
+                   const float* lt, const float* ly, const float* lx,
+                   int batch, int Nt, int Ny, int Nx, float r, float reps,
+                   const float* r_pairs, const float* reps_pairs,
+                   cudaStream_t stream) {
+  if (batch < 1 || Nt < 1 || Ny < 1 || Nx < 1 ||
+      (long long)batch * Nt > 65535)
     return (int)cudaErrorInvalidValue;
-  const Spectrum spec{lt, ly, lx, r, reps};
+  const Spectrum spec{lt, ly, lx, Nt, r, reps, r_pairs, reps_pairs};
+  const int slices = batch * Nt;
   cudaError_t err;
   // tmp = Cy @ S
   if ((err = launch_gemm<false>(matrix(Cy, Ny), field(Fz, Ny, Nx), tmp, Ny,
-                                Nx, Ny, Nt, spec, stream)) != cudaSuccess)
+                                Nx, Ny, slices, spec, stream)) != cudaSuccess)
     return (int)err;
   // out = (tmp @ CxT) / D_t
   if ((err = launch_gemm<true>(field(tmp, Ny, Nx), matrix(CxT, Nx), out, Ny,
-                               Nx, Nx, Nt, spec, stream)) != cudaSuccess)
+                               Nx, Nx, slices, spec, stream)) != cudaSuccess)
     return (int)err;
   // tmp = CyT @ out
   if ((err = launch_gemm<false>(matrix(CyT, Ny), field(out, Ny, Nx), tmp, Ny,
-                                Nx, Ny, Nt, spec, stream)) != cudaSuccess)
+                                Nx, Ny, slices, spec, stream)) != cudaSuccess)
     return (int)err;
   // out = tmp @ Cx
   return (int)launch_gemm<false>(field(tmp, Ny, Nx), matrix(Cx, Nx), out, Ny,
-                                 Nx, Nx, Nt, spec, stream);
+                                 Nx, Nx, slices, spec, stream);
 }
 
 }  // extern "C"

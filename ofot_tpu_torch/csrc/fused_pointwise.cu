@@ -31,8 +31,20 @@
 // The projection is project_point<K> of paraboloid.cuh, shared with the
 // standalone projection kernel (projection.cu).
 //
+// A lockstep batch of B pairs (fields of shape (B, 1+K, L), pair-major) is
+// one launch on a (blocks per pair, B) grid: grid row b works on pair b's
+// fields exactly as a single-pair launch works on them (the same block
+// count, the same partition of the points, the same per-block tree), with
+// pair b's r read from r_pairs[b] where a per-pair r is given, and the
+// second stage reduces each pair's partials in its own block, in the same
+// order.  So each pair's q, mu', num and den are bitwise those of a
+// single-pair launch on that pair, and a pair's stagnation stop cannot
+// flip between a sequential and a lockstep batch.  The bound is B times
+// the single-pair bound.
+//
 // Plain C interface (no PyTorch header): raw device pointers, the element
-// count, r, alpha and the stream; the launcher returns cudaGetLastError().
+// count, the batch, r (or r_pairs), alpha and the stream; the launcher
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -63,8 +75,18 @@ fused_pointwise_kernel(const float* __restrict__ gphi,
                        float* __restrict__ q_out,
                        float* __restrict__ mu_out,
                        float* __restrict__ partials,
-                       long long L, float r, float alpha) {
+                       long long L, float r,
+                       const float* __restrict__ r_pairs, float alpha) {
   __shared__ float smem[kThreads];
+  // grid row blockIdx.y is one pair of a batch (row 0 alone otherwise)
+  const long long base = (long long)blockIdx.y * (K + 1) * L;
+  gphi += base;
+  mu += base;
+  if (kRelaxed) qprev += base;
+  q_out += base;
+  mu_out += base;
+  partials += 2LL * blockIdx.y * gridDim.x;
+  if (r_pairs != nullptr) r = r_pairs[blockIdx.y];
   float num = 0.f, den = 0.f;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < L;
@@ -107,12 +129,14 @@ fused_pointwise_kernel(const float* __restrict__ gphi,
   }
 }
 
-// One block: sums[0] = sum of partials[0:n], sums[1] = sum of
-// partials[n:2n], each thread first walking its strided share in order.
+// One block a pair b: sums[2b] = sum of partials[2bn:2bn+n], sums[2b+1] =
+// sum of the next n, each thread first walking its strided share in order.
 __global__ void __launch_bounds__(kThreads)
 reduce_partials_kernel(const float* __restrict__ partials, int n,
                        float* __restrict__ sums) {
   __shared__ float smem[kThreads];
+  partials += 2LL * blockIdx.x * n;
+  sums += 2 * blockIdx.x;
   float num = 0.f, den = 0.f;
   for (int j = threadIdx.x; j < n; j += kThreads) {
     num += partials[j];
@@ -130,12 +154,13 @@ reduce_partials_kernel(const float* __restrict__ partials, int n,
 template <int K, bool kRelaxed>
 void launch(const float* gphi, const float* mu, const float* qprev,
             float* q_out, float* mu_out, float* partials, float* sums,
-            long long L, int nblocks, float r, float alpha,
-            cudaStream_t stream) {
-  fused_pointwise_kernel<K, kRelaxed><<<nblocks, kThreads, 0, stream>>>(
-      gphi, mu, qprev, q_out, mu_out, partials, L, r, alpha);
-  reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, nblocks,
-                                                     sums);
+            long long L, int nblocks, int batch, float r,
+            const float* r_pairs, float alpha, cudaStream_t stream) {
+  fused_pointwise_kernel<K, kRelaxed>
+      <<<dim3(nblocks, batch), kThreads, 0, stream>>>(
+          gphi, mu, qprev, q_out, mu_out, partials, L, r, r_pairs, alpha);
+  reduce_partials_kernel<<<batch, kThreads, 0, stream>>>(partials, nblocks,
+                                                         sums);
 }
 
 }  // namespace
@@ -147,29 +172,33 @@ extern "C" {
 int ofot_fused_pointwise_threads(void) { return kThreads; }
 
 // ncomp = 1 + K with K in {2, 3}; qprev == nullptr selects the alpha = 1
-// form.  Every array is contiguous float32 of ncomp * L elements except
-// partials (2 * nblocks) and sums (2).  Returns cudaGetLastError().
+// form.  Every array is contiguous float32 of batch * ncomp * L elements
+// except partials (batch * 2 * nblocks) and sums (batch * 2).  r_pairs ==
+// nullptr: every pair uses r; else pair b uses r_pairs[b] (batch floats).
+// Returns cudaGetLastError().
 int ofot_fused_pointwise(const float* gphi, const float* mu,
                          const float* qprev, float* q_out, float* mu_out,
                          float* partials, float* sums, int ncomp,
-                         long long L, int nblocks, float r, float alpha,
+                         long long L, int nblocks, int batch, float r,
+                         const float* r_pairs, float alpha,
                          cudaStream_t stream) {
-  if (L <= 0 || nblocks <= 0) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || nblocks <= 0 || batch <= 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   const bool relaxed = qprev != nullptr;
   if (ncomp == 3) {
     if (relaxed)
       launch<2, true>(gphi, mu, qprev, q_out, mu_out, partials, sums, L,
-                      nblocks, r, alpha, stream);
+                      nblocks, batch, r, r_pairs, alpha, stream);
     else
       launch<2, false>(gphi, mu, qprev, q_out, mu_out, partials, sums, L,
-                       nblocks, r, alpha, stream);
+                       nblocks, batch, r, r_pairs, alpha, stream);
   } else if (ncomp == 4) {
     if (relaxed)
       launch<3, true>(gphi, mu, qprev, q_out, mu_out, partials, sums, L,
-                      nblocks, r, alpha, stream);
+                      nblocks, batch, r, r_pairs, alpha, stream);
     else
       launch<3, false>(gphi, mu, qprev, q_out, mu_out, partials, sums, L,
-                       nblocks, r, alpha, stream);
+                       nblocks, batch, r, r_pairs, alpha, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }

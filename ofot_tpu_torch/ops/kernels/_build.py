@@ -126,20 +126,22 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         "ofot_fused_pointwise": [
             vp, vp, vp, vp, vp, vp, vp,       # gphi mu qprev q mu' parts sums
-            c_int, c_ll, c_int,               # ncomp, L, nblocks
-            c_float, c_float, vp],            # r, alpha, stream
+            c_int, c_ll, c_int, c_int,        # ncomp, L, nblocks, batch
+            c_float, vp, c_float, vp],        # r, r_pairs, alpha, stream
         "ofot_fused_pointwise_threads": [],
         "ofot_project_paraboloid": [
             vp, vp, c_int, c_ll, vp],         # p out ncomp L stream
         "ofot_cg_operator": [
-            vp, vp, c_int, c_int, c_int,      # x y Nt Ny Nx
-            c_float, c_float, vp],            # r, r*eps, stream
+            vp, vp, c_int, c_int, c_int, c_int,   # x y batch Nt Ny Nx
+            c_float, c_float, vp, vp,         # r r*eps r_pairs reps_pairs
+            vp],                              # stream
         "ofot_dct_solve": [
             vp, vp, vp,                       # Fz out tmp
             vp, vp, vp, vp,                   # Cy CyT Cx CxT
             vp, vp, vp,                       # lt ly lx
-            c_int, c_int, c_int,              # Nt Ny Nx
-            c_float, c_float, vp],            # r, r*eps, stream
+            c_int, c_int, c_int, c_int,       # batch Nt Ny Nx
+            c_float, c_float, vp, vp,         # r r*eps r_pairs reps_pairs
+            vp],                              # stream
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -172,6 +174,19 @@ def check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"operand {tuple(like.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def pair_scalars(r, reg_epsilon, x: torch.Tensor):
+    """(r, r*eps) for ``x``: floats, or for a per-pair ``r`` (a (B,)
+    tensor) two (B,) tensors in x's dtype, r*eps formed in float64 as a
+    single pair's float arithmetic forms it."""
+    if not isinstance(r, torch.Tensor) or r.dim() == 0:
+        return r, r * reg_epsilon
+    if x.dim() != 4 or r.shape != x.shape[:1]:
+        raise ValueError(f"a per-pair r of shape {tuple(r.shape)} needs a "
+                         f"(B, Nt, Ny, Nx) batch, got {tuple(x.shape)}")
+    reps = (r.to(torch.float64) * float(reg_epsilon)).to(x.device, x.dtype)
+    return r.to(x.device, x.dtype), reps
 
 
 def stream_of(t: torch.Tensor) -> int:

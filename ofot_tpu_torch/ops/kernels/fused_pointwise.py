@@ -4,7 +4,10 @@ Counterpart of ``fused_pointwise_pallas`` (ofot_tpu/ops/pallas/kernels.py
 :288, kernel body :224).  ``fused_pointwise`` launches the CUDA kernel of
 ``ofot_tpu_torch/csrc/fused_pointwise.cu`` on CUDA tensors and runs
 ``fused_pointwise_reference``, the plain torch version, on CPU tensors;
-any other device, dtype or layout raises.
+any other device, dtype or layout raises.  ``fused_pointwise_batched`` is
+the lockstep batch form: (B, 1+k, Nt, Ny, Nx) fields, a per-pair ``r`` and
+per-pair sums, all B pairs in one launch of the same kernel, each pair
+bitwise its single-pair launch.
 
 ``launches`` counts the kernel's launches in this process; it is the only
 module-level state, and only the CUDA branch of the wrapper changes it.
@@ -99,10 +102,30 @@ def fused_pointwise_reference(grad_phi, mu, r, alpha=None, q_prev=None):
     return (torch.cat([q0[None], qb]), torch.cat([n0[None], nb]), num, den)
 
 
+def _pair_r(r, b):
+    """Pair ``b``'s r: ``r`` is one float for every pair or a (B,)
+    tensor."""
+    return float(r[b]) if isinstance(r, torch.Tensor) else r
+
+
+def fused_pointwise_batched_reference(grad_phi, mu, r, alpha=None,
+                                      q_prev=None):
+    """Plain torch version of :func:`fused_pointwise_batched`: the
+    single-pair plain version applied pair by pair."""
+    outs = [fused_pointwise_reference(
+        grad_phi[b], mu[b], _pair_r(r, b), alpha,
+        None if q_prev is None else q_prev[b]) for b in range(len(mu))]
+    return tuple(torch.stack(f) for f in zip(*outs))
+
+
 # ------------------------------------------------------------ CUDA kernel
 
-def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
+def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None,
+                   batched=False):
     """Check CUDA operands and allocate the outputs of one kernel launch.
+
+    ``batched``: the fields are (B, 1+k, ...) and ``r`` is one float or a
+    (B,) tensor; ``sums`` is then (B, 2), else (2,).
 
     Returns ``(enqueue, (q, mu_new, sums))``: ``enqueue()`` puts the kernel
     on the current stream and raises on a launch error; it does not count
@@ -114,27 +137,40 @@ def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
         operands.append(("q_prev", q_prev))
     for name, t in operands:
         _build.check_operand(name, t, grad_phi)
-    ncomp = grad_phi.shape[0]
-    if ncomp not in (3, 4) or grad_phi.dim() < 2:
-        raise ValueError("grad_phi must be (1+k, ...) with k in {2, 3}, got "
-                         f"shape {tuple(grad_phi.shape)}")
-    L = grad_phi.numel() // ncomp
+    batch = grad_phi.shape[0] if batched else 1
+    ncomp = grad_phi.shape[1] if batched else grad_phi.shape[0]
+    if ncomp not in (3, 4) or grad_phi.dim() < 2 + batched:
+        raise ValueError(f"grad_phi must be ({'B, ' if batched else ''}1+k, "
+                         f"...) with k in {{2, 3}}, got shape "
+                         f"{tuple(grad_phi.shape)}")
+    if not 0 < batch <= 65535:
+        raise ValueError(f"a batch of {batch} pairs (1 to 65535)")
+    L = grad_phi.numel() // (batch * ncomp)
     if L == 0:
         raise ValueError("grad_phi has no points")
+    r_pairs = None
+    if isinstance(r, torch.Tensor) and r.dim() > 0:
+        if not batched or r.shape != (batch,):
+            raise ValueError(f"a per-pair r must be ({batch},) for a batch, "
+                             f"got shape {tuple(r.shape)}")
+        r_pairs = r.to(grad_phi.device, torch.float32).contiguous()
 
     lib = _build.load_library()
     threads = lib.ofot_fused_pointwise_threads()
     nblocks = min(-(-L // threads), MAX_BLOCKS)
     q = torch.empty_like(grad_phi)
     mu_new = torch.empty_like(mu)
-    partials = torch.empty(2 * nblocks, dtype=torch.float32,
+    partials = torch.empty(batch * 2 * nblocks, dtype=torch.float32,
                            device=grad_phi.device)
-    sums = torch.empty(2, dtype=torch.float32, device=grad_phi.device)
+    sums = torch.empty((batch, 2) if batched else (2,), dtype=torch.float32,
+                       device=grad_phi.device)
     stream = _build.stream_of(grad_phi)
     args = (grad_phi.data_ptr(), mu.data_ptr(),
             None if q_prev is None else q_prev.data_ptr(),
             q.data_ptr(), mu_new.data_ptr(), partials.data_ptr(),
-            sums.data_ptr(), ncomp, L, nblocks, float(r),
+            sums.data_ptr(), ncomp, L, nblocks, batch,
+            1.0 if r_pairs is not None else float(r),
+            None if r_pairs is None else r_pairs.data_ptr(),
             1.0 if alpha is None else float(alpha), stream)
 
     def enqueue():
@@ -142,8 +178,17 @@ def prepare_launch(grad_phi, mu, r, alpha=None, q_prev=None):
                             "fused_pointwise")
 
     # the closure holds the raw pointers: keep every buffer alive with it
-    enqueue.buffers = (grad_phi, mu, q_prev, partials)
+    enqueue.buffers = (grad_phi, mu, q_prev, partials, r_pairs)
     return enqueue, (q, mu_new, sums)
+
+
+def _check_relaxation(alpha, q_prev) -> None:
+    if alpha is not None and q_prev is None:
+        # silently running the un-relaxed update would let over-relaxation
+        # no-op
+        raise ValueError("alpha given without q_prev")
+    if q_prev is not None and alpha is None:
+        raise ValueError("q_prev given without alpha")
 
 
 def fused_pointwise(grad_phi: torch.Tensor, mu: torch.Tensor, r,
@@ -161,12 +206,7 @@ def fused_pointwise(grad_phi: torch.Tensor, mu: torch.Tensor, r,
     CUDA tensors go to the kernel (float32, contiguous, one device, equal
     shapes, else it raises); CPU tensors to :func:`fused_pointwise_reference`.
     """
-    if alpha is not None and q_prev is None:
-        # silently running the un-relaxed update would let over-relaxation
-        # no-op
-        raise ValueError("alpha given without q_prev")
-    if q_prev is not None and alpha is None:
-        raise ValueError("q_prev given without alpha")
+    _check_relaxation(alpha, q_prev)
     if grad_phi.device.type == "cpu":
         return fused_pointwise_reference(grad_phi, mu, r, alpha, q_prev)
     global launches
@@ -175,3 +215,25 @@ def fused_pointwise(grad_phi: torch.Tensor, mu: torch.Tensor, r,
     enqueue()
     launches += 1
     return q, mu_new, sums[0], sums[1]
+
+
+def fused_pointwise_batched(grad_phi: torch.Tensor, mu: torch.Tensor, r,
+                            alpha=None, q_prev: torch.Tensor | None = None):
+    """The fused pass over a lockstep batch of pairs.
+
+    ``grad_phi``, ``mu`` (and ``q_prev``): (B, 1+k, Nt, Ny, Nx); ``r``: one
+    float for every pair or a (B,) tensor of per-pair penalties.  Returns
+    ``(q, mu_new, num, denom)`` with (B,) criterion sums.  CUDA tensors go
+    to one launch of the kernel for the whole batch (counted once in
+    ``launches``); CPU tensors to :func:`fused_pointwise_batched_reference`.
+    """
+    _check_relaxation(alpha, q_prev)
+    if grad_phi.device.type == "cpu":
+        return fused_pointwise_batched_reference(grad_phi, mu, r, alpha,
+                                                 q_prev)
+    global launches
+    enqueue, (q, mu_new, sums) = prepare_launch(grad_phi, mu, r, alpha,
+                                                q_prev, batched=True)
+    enqueue()
+    launches += 1
+    return q, mu_new, sums[:, 0], sums[:, 1]

@@ -73,21 +73,24 @@ def lap_gn(f, dx=1.0, dy=1.0, bc="N"):
 # space-time (3-D) operators — reference operators.py:114-157
 # --------------------------------------------------------------------------
 
-def grad_st(phi, dt=1.0, dx=1.0, dy=1.0, bc="N"):
+def grad_st(phi, dt=1.0, dx=1.0, dy=1.0, bc="N", dim=0):
     """Space-time gradient -> (3, Nt, Ny, Nx) = (d/dt, d/dx, d/dy), all three
-    with the ``central_weird`` stencil (reference operators.py:124-127)."""
+    with the ``central_weird`` stencil (reference operators.py:124-127).
+    ``dim``: the component axis of the result (1 for a (B, Nt, Ny, Nx)
+    batch of potentials, giving (B, 3, Nt, Ny, Nx))."""
     gt = stencils.grad_central_weird(phi, dt, bc, axis=_AX_T)
     gx = stencils.grad_central_weird(phi, dx, bc, axis=_AX_X)
     gy = stencils.grad_central_weird(phi, dy, bc, axis=_AX_Y)
-    return torch.stack([gt, gx, gy])
+    return torch.stack([gt, gx, gy], dim=dim)
 
 
-def div_st(mu, dt=1.0, dx=1.0, dy=1.0, bc="N"):
+def div_st(mu, dt=1.0, dx=1.0, dy=1.0, bc="N", dim=0):
     """Space-time divergence of ``mu = (rho, m1, m2)`` -> (Nt, Ny, Nx).
+    ``dim``: the component axis of ``mu`` (1 for a batch).
 
     The reference's independently-built ``div_st`` (operators.py:129-142),
     which is *not* ``-grad_st^T`` (SURVEY.md §2 quirk 3)."""
-    rho, m1, m2 = mu[0], mu[1], mu[2]
+    rho, m1, m2 = (mu.select(dim, i) for i in range(3))
     return (stencils.grad_central_weird(rho, dt, bc, axis=_AX_T)
             + stencils.grad_central_weird(m1, dx, bc, axis=_AX_X)
             + stencils.grad_central_weird(m2, dy, bc, axis=_AX_Y))

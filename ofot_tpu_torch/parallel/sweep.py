@@ -1,16 +1,25 @@
 """Sequence sweeps: many frame pairs solved by one call.
 
-Counterpart of ``ofot_tpu.parallel.sweep`` in its ``map`` mode.  The JAX
-package lifts a per-pair solve to a batch with ``lax.map`` (pairs one
-after another inside one jitted program) or ``vmap`` (one lockstep
-program), optionally with the batch axis sharded over a ``data`` mesh.
-The port's solvers are host loops that read their stopping rule once per
-iteration, so ``map`` is a Python loop over the pairs on one device: each
-pair goes through the same functions, in the same order, as the CLI's
-solve (``ofot_tpu_torch.cli.main``), and its results equal the
-single-pair solve's bitwise.  The lockstep ``vmap`` mode needs batched
-solvers with per-pair ``done`` masks, and the mesh needs the distribution
-layer; both raise ``NotImplementedError`` until those are ported.
+Counterpart of ``ofot_tpu.parallel.sweep``.  The JAX package lifts a
+per-pair solve to a batch with ``lax.map`` (pairs one after another inside
+one jitted program) or ``vmap`` (one lockstep program), optionally with
+the batch axis sharded over a ``data`` mesh.  The port's solvers are host
+loops that read their stopping rule once per iteration, so:
+
+  * ``map`` is a Python loop over the pairs on one device: each pair goes
+    through the same functions, in the same order, as the CLI's solve
+    (``ofot_tpu_torch.cli.main``), and its results equal the single-pair
+    solve's bitwise;
+  * ``vmap`` runs the lockstep solvers (``foto``/``wfr``
+    ``solve_potential_batched``, and ``gn.solve_fields`` and
+    ``sinkhorn.flow`` on (B, Ny, Nx) stacks): one loop for the whole
+    batch, each kernel launched once per step for all pairs, each pair
+    stopping on its own rule; the flow extraction then runs pair by pair.
+    ``solve_foto_batch``, ``solve_gn_batch`` and ``sweep_foto`` are
+    lockstep, as JAX's are.
+
+The mesh needs the distribution layer and raises ``NotImplementedError``
+until it is ported.
 
 Middlebury sequences come in a handful of distinct resolutions; padding a
 pair would change the PDE domain, so heterogeneous inputs are *grouped by
@@ -24,10 +33,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ofot_tpu_torch.solvers import flow_extract, foto, gn, wfr
+from ofot_tpu_torch.solvers import flow_extract, foto, gn, lockstep, wfr
 
-VMAP_NOT_PORTED = ("batch_mode='vmap' (a lockstep batch) is not ported "
-                   "yet: ROADMAP Queue 1 item 11 (lockstep batch)")
 MESH_NOT_PORTED = ("a data mesh is not ported yet: ROADMAP Queue 1 item "
                    "10 (distribution layer)")
 
@@ -60,9 +67,7 @@ def torch_device(name) -> torch.device:
 
 
 def _check_layout(batch_mode: str, mesh) -> None:
-    if batch_mode == "vmap":
-        raise NotImplementedError(VMAP_NOT_PORTED)
-    if batch_mode != "map":
+    if batch_mode not in ("map", "vmap"):
         raise ValueError(f"unknown batch_mode {batch_mode!r} "
                          "(expected 'vmap' or 'map')")
     if mesh is not None:
@@ -76,6 +81,48 @@ def _map_pairs(one, f1s, f2s):
     u, v, m = (torch.stack([o[i] for o in outs]) for i in range(3))
     diag = {k: np.asarray([o[3][k] for o in outs]) for k in outs[0][3]}
     return u, v, m, diag
+
+
+def _flows(phi):
+    """Flow extraction of a (B, Nt, Ny, Nx) potential, pair by pair (it
+    runs once a pair) -> stacked (u, v, m)."""
+    outs = [flow_extract.flow_from_potential(p) for p in phi]
+    return tuple(torch.stack(f) for f in zip(*outs))
+
+
+def _diag(**fields):
+    """(B,) per-pair diagnostics as numpy arrays."""
+    return {k: v.cpu().numpy() for k, v in fields.items()}
+
+
+def _lockstep_full(algo, f1s, f2s, fp, wp, sp, gp):
+    """``solve_batch_full``'s lockstep (vmap) mode on resolved params."""
+    if algo == "foto":
+        Nt = fp.pop("Nt")
+        st = foto.solve_potential_batched(f1s, f2s, Nt, **fp)
+        u, v, m = _flows(st.phi)
+        return u, v, m, _diag(iterations=st.iteration,
+                              inner_iterations=st.cg_iterations,
+                              crit=st.crit)
+    if algo == "WFR":
+        Nt = wp.pop("Nt")
+        st = wfr.solve_potential_batched(f1s, f2s, Nt, **wp)
+        u, v, m = _flows(st.phi)
+        g = torch.stack([wfr.growth_from_state(lockstep.pair(st, i),
+                                               wp["delta"])
+                         for i in range(len(f1s))])
+        return u, v, wfr.combined_luminosity(m, g), _diag(
+            iterations=st.iteration, crit=st.crit)
+    if algo == "sinkhorn":
+        from ofot_tpu_torch.ops import operators
+        from ofot_tpu_torch.solvers import sinkhorn
+        res = sinkhorn.flow(f1s, f2s, **sp)
+        m = -operators.div2d(res.u, res.v, bc="D")
+        return res.u, res.v, m, _diag(iterations=res.iterations,
+                                      marginal_error=res.marginal_error)
+    res = gn.solve_fields(f1s, f2s, **gp)
+    return res.u, res.v, res.m, _diag(inner_iterations=res.cg.iterations,
+                                      converged=res.cg.converged)
 
 
 def _resolve(algo: str, solver: str, device) -> str:
@@ -119,7 +166,9 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
                      sinkhorn_params: dict | None = None,
                      batch_mode: str = "map", *, device="cuda"):
     """Batched end-to-end solve of (B, Ny, Nx) frame stacks on ``device``
-    -> stacked (u, v, m) tensors plus per-pair diagnostics.
+    -> stacked (u, v, m) tensors plus per-pair diagnostics, as (B,) numpy
+    arrays.  ``batch_mode``: ``map`` (pair after pair, bitwise the
+    single-pair solves) or ``vmap`` (the lockstep batch).
 
     ``auto`` stepA solvers resolve by device (``pallas`` on cuda, which
     launches the fused kernel once per ALG2 iteration), as the port's CLI
@@ -154,10 +203,23 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
     f1s = f1s.to(dev)
     f2s = torch.as_tensor(f2s, device=dev)
 
+    fp = dict(foto_params or {})
+    wp = dict(wfr_params or {})
+    gp = dict(gn_params or {})
     if algo == "foto":
-        fp = dict(foto_params or {})
-        Nt = fp.pop("Nt", 16)
+        fp.setdefault("Nt", 16)
         fp["ops"] = _resolved_ops("foto", fp, dev)
+    elif algo == "WFR":
+        # resolve delta ONCE so the solve and the growth extraction can
+        # never drift apart on the default
+        wp.setdefault("delta", 10.0)
+        wp.setdefault("Nt", 16)
+        wp["ops"] = _resolved_ops("WFR", wp, dev)
+    if batch_mode == "vmap":
+        return _lockstep_full(algo, f1s, f2s, fp, wp, sp, gp)
+
+    if algo == "foto":
+        Nt = fp.pop("Nt")
 
         def one(p, q):
             st = foto.solve_potential(p, q, Nt, **fp)
@@ -166,12 +228,7 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
                              "inner_iterations": st.cg_iterations,
                              "crit": float(st.crit)}
     elif algo == "WFR":
-        wp = dict(wfr_params or {})
-        # resolve delta ONCE so the solve and the growth extraction can
-        # never drift apart on the default
-        wp.setdefault("delta", 10.0)
-        Nt = wp.pop("Nt", 16)
-        wp["ops"] = _resolved_ops("WFR", wp, dev)
+        Nt = wp.pop("Nt")
 
         def one(p, q):
             st = wfr.solve_potential(p, q, Nt, **wp)
@@ -190,8 +247,6 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
                 "iterations": res.iterations,
                 "marginal_error": float(res.marginal_error)}
     else:
-        gp = dict(gn_params or {})
-
         def one(p, q):
             res = gn.solve_fields(p, q, **gp)
             return res.u, res.v, res.m, {
@@ -200,40 +255,27 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
     return _map_pairs(one, f1s, f2s)
 
 
-def _stack(items):
-    """Stack per-pair results field by field (numbers become tensors)."""
-    fields = []
-    for f in zip(*items):
-        if isinstance(f[0], tuple):
-            fields.append(_stack(f))
-        elif isinstance(f[0], torch.Tensor):
-            fields.append(torch.stack(f))
-        else:
-            fields.append(torch.tensor(f))
-    return type(items[0])(*fields)
-
-
 def solve_foto_batch(rho0s, rhoTs, Nt: int, mesh=None, *, device="cuda",
                      **kw):
     """Batched FOTO: rho0s/rhoTs are (B, Ny, Nx).  Returns a FotoState
-    with a leading batch axis (the iteration counts as tensors), the pairs
-    solved one after another."""
-    _check_layout("map", mesh)
+    with a leading batch axis and (B,) counters, the pairs solved in
+    lockstep (``foto.solve_potential_batched``)."""
+    _check_layout("vmap", mesh)
     dev = torch_device(device)
-    states = [foto.solve_potential(a, b, Nt, **kw) for a, b in
-              zip(torch.as_tensor(rho0s, device=dev),
-                  torch.as_tensor(rhoTs, device=dev))]
-    return _stack(states)
+    return foto.solve_potential_batched(
+        torch.as_tensor(rho0s, device=dev),
+        torch.as_tensor(rhoTs, device=dev), Nt, **kw)
 
 
 def solve_gn_batch(f1s, f2s, mesh=None, alpha=0.1, lambda_=0.2, *,
                    device="cuda", **kw):
-    """Batched GN: (B, Ny, Nx) frame stacks -> batched GNResult."""
-    _check_layout("map", mesh)
+    """Batched GN: (B, Ny, Nx) frame stacks -> batched GNResult, the pairs
+    solved in lockstep."""
+    _check_layout("vmap", mesh)
     dev = torch_device(device)
-    return _stack([gn.solve_fields(a, b, alpha, lambda_, **kw) for a, b in
-                   zip(torch.as_tensor(f1s, device=dev),
-                       torch.as_tensor(f2s, device=dev))])
+    return gn.solve_fields(torch.as_tensor(f1s, device=dev),
+                           torch.as_tensor(f2s, device=dev), alpha, lambda_,
+                           **kw)
 
 
 def sweep_foto(pairs, Nt: int, mesh=None, *, device="cuda", **kw):
@@ -246,5 +288,5 @@ def sweep_foto(pairs, Nt: int, mesh=None, *, device="cuda", **kw):
         rT = np.stack([np.asarray(f2) for _, _, f2 in group])
         states = solve_foto_batch(r0, rT, Nt, mesh, device=device, **kw)
         for i, key in enumerate(keys):
-            results[key] = type(states)(*(f[i] for f in states))
+            results[key] = lockstep.pair(states, i)
     return results

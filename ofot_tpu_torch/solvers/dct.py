@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ofot_tpu_torch.ops import operators
+from ofot_tpu_torch.solvers.lockstep import PerPair
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
@@ -361,14 +362,22 @@ def _tf32_matmul(device):
 class StepAPlan:
     """The transforms and spectrum of one stepA system on one device,
     routes resolved once and matrices built once, reused by every solve of
-    that system.  At the sweep shape every axis is dense."""
+    that system.  At the sweep shape every axis is dense.
 
-    def __init__(self, shape, r: float, reg_epsilon: float, dtype, device):
+    A lockstep batch solves (B, Nt, Ny, Nx) fields.  With a per-pair ``r``
+    (a ``lockstep.PerPair``) the spectrum depends on the pair, so it is
+    built per pair, each exactly as a single pair's plan builds it (not a
+    shared spectrum scaled per pair, which would round differently), and
+    stacked to (B, Nt, Ny, Nx)."""
+
+    def __init__(self, shape, r, reg_epsilon: float, dtype, device):
         Nt, Ny, Nx = shape[-3:]
         self.r, self.reg_epsilon = r, reg_epsilon
         self.dct = SeparableDCT((Nt, Ny, Nx), dtype, device)
-        self.spec = _stepA_spectrum_ingraph(Nt, Ny, Nx, r, reg_epsilon,
-                                            dtype, self.dct.modes, device)
+        rs = r.values if isinstance(r, PerPair) else (r,)
+        spec = [_stepA_spectrum_ingraph(Nt, Ny, Nx, v, reg_epsilon, dtype,
+                                        self.dct.modes, device) for v in rs]
+        self.spec = torch.stack(spec) if isinstance(r, PerPair) else spec[0]
 
     def solve(self, F: torch.Tensor) -> torch.Tensor:
         """The exact solve, full float32 (or float64) products."""

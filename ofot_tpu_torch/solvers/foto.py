@@ -36,10 +36,20 @@ Ops sets (``stepA_ops``), named as the JAX CLI names them:
     kernel of ``ops/kernels/cg_operator.py``, unfused rest.
 
 On CPU tensors every kernel wrapper runs its plain torch version.
+
+Lockstep batches (JAX's ``vmap`` mode): :func:`solve_potential_batched`
+runs B pairs of (B, Ny, Nx) frames as one ALG2 loop on (B, 3, Nt, Ny, Nx)
+state, each pair stopping on its own rule (``solvers/lockstep.py``).  The
+iteration code is the single-pair code: ``lockstep_ops`` gives every ops
+set a form whose component axis is 1 (``cax``), whose ``sum`` and ``max``
+reduce per pair, whose CG is the masked batched CG and whose fused pass
+and kernels take the whole batch in one launch; ``auto_r`` gives each pair
+its own ``r`` (a ``lockstep.PerPair``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -48,15 +58,19 @@ from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.ops.kernels import projection as projection_kernel
 from ofot_tpu_torch.ops.kernels.cg_operator import cg_operator_blocked
 from ofot_tpu_torch.ops.kernels.dct_solve import dct_solve
-from ofot_tpu_torch.ops.kernels.fused_pointwise import fused_pointwise
+from ofot_tpu_torch.ops.kernels.fused_pointwise import (
+    fused_pointwise, fused_pointwise_batched)
 from ofot_tpu_torch.ops.projection import (project_paraboloid,
                                            project_paraboloid_nd)
 from ofot_tpu_torch.solvers import cg as cg_mod
-from ofot_tpu_torch.solvers import dct, flow_extract
+from ofot_tpu_torch.solvers import dct, flow_extract, lockstep
+from ofot_tpu_torch.solvers.lockstep import PerPair, kernel_r
 
 
 class _DefaultOps:
     """Space-time operator set: plain torch stencils, CG stepA."""
+    cax = 0    # the component axis of mu, q and grad_phi
+    cg_solve = staticmethod(cg_mod.cg)
     grad_st = staticmethod(operators.grad_st)
     div_st = staticmethod(operators.div_st)
     laplacian_st = staticmethod(operators.laplacian_st)
@@ -74,8 +88,9 @@ class _DefaultOps:
     def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
         """Solve A phi = F; returns (phi, inner_iterations).  Default:
         matrix-free CG with the reference's scipy-cg semantics."""
-        res = cg_mod.cg(self.cg_operator(r, reg_epsilon), F, rtol=cg_rtol,
-                        maxiter=cg_maxiter, dot=lambda a, b: self.sum(a * b))
+        res = self.cg_solve(self.cg_operator(r, reg_epsilon), F,
+                            rtol=cg_rtol, maxiter=cg_maxiter,
+                            dot=lambda a, b: self.sum(a * b))
         return res.x, res.iterations
 
 
@@ -89,12 +104,16 @@ class DCTOps(_DefaultOps):
         self._plans = {}
 
     def _plan(self, F, r, reg_epsilon):
-        key = (tuple(F.shape), F.dtype, F.device, float(r),
+        # a per-pair r keys on its values: one plan per solve, not per
+        # iteration
+        r = r if isinstance(r, PerPair) else float(r)
+        key = (tuple(F.shape), F.dtype, F.device,
+               r.values if isinstance(r, PerPair) else r,
                float(reg_epsilon))
         plan = self._plans.get(key)
         if plan is None:
             plan = self._plans[key] = dct.StepAPlan(
-                F.shape, float(r), float(reg_epsilon), F.dtype, F.device)
+                F.shape, r, float(reg_epsilon), F.dtype, F.device)
         return plan
 
     def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
@@ -125,7 +144,7 @@ class DCTFusedOps(DCTOps):
     it has solved."""
 
     def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
-        return dct_solve(F, r, reg_epsilon), 1
+        return dct_solve(F, kernel_r(r), reg_epsilon), 1
 
 
 class PallasOps(DCTOps):
@@ -145,10 +164,70 @@ class PallasCGOps(_DefaultOps):
     step on CUDA tensors).  Same CG semantics as the ``cg`` set."""
 
     def cg_operator(self, r, reg_epsilon):
+        r = kernel_r(r)
         return lambda phi: cg_operator_blocked(phi, r, reg_epsilon)
 
 
 DEFAULT_OPS = _DefaultOps()
+
+
+def _per_pair_sum(x):
+    return torch.sum(x.flatten(1), dim=1)
+
+
+def _per_pair_max(x):
+    return torch.amax(x.flatten(1), dim=1)
+
+
+class _Lockstep:
+    """Mixin giving an ops set its lockstep-batch form: fields carry the
+    pair axis first and the component axis second ((B, 3, Nt, Ny, Nx)),
+    ``sum`` and ``max`` reduce per pair to (B,), stepA's CG is the masked
+    batched CG, and the stencils, spectral solves and kernels act on the
+    whole batch (the kernel wrappers take (B, ...) fields)."""
+    cax = 1
+    cg_solve = staticmethod(cg_mod.cg_batched)
+    sum = staticmethod(_per_pair_sum)
+    max = staticmethod(_per_pair_max)
+
+    @staticmethod
+    def grad_st(phi, bc="N"):
+        return operators.grad_st(phi, bc=bc, dim=1)
+
+    @staticmethod
+    def div_st(mu, bc="N"):
+        return operators.div_st(mu, bc=bc, dim=1)
+
+    def project(self, p):
+        return super().project(p.transpose(0, 1)).transpose(0, 1)
+
+    def project_nd(self, p):
+        return super().project_nd(p.transpose(0, 1)).transpose(0, 1)
+
+
+def _fused_batched(grad_phi, mu, r, alpha=None, q_prev=None):
+    return fused_pointwise_batched(grad_phi, mu, kernel_r(r), alpha, q_prev)
+
+
+@functools.cache
+def _lockstep_class(cls):
+    attrs = {}
+    if hasattr(cls, "fused_pointwise"):
+        attrs["fused_pointwise"] = staticmethod(_fused_batched)
+    return type(f"Lockstep{cls.__name__}", (_Lockstep, cls), attrs)
+
+
+def lockstep_ops(ops):
+    """The lockstep-batch form of the ops set ``ops`` (its own state, such
+    as ``DCTRefinedOps.refine``, carried over; ``ops`` itself if it is one
+    already)."""
+    if isinstance(ops, _Lockstep):
+        return ops
+    batched = object.__new__(_lockstep_class(type(ops)))
+    batched.__dict__.update(vars(ops))
+    if hasattr(batched, "_plans"):
+        batched._plans = {}
+    return batched
 
 _OPS = {"cg": _DefaultOps, "dct": DCTOps, "dct-refined": DCTRefinedOps,
         "pallas": PallasOps, "dct-fused": DCTFusedOps,
@@ -197,18 +276,24 @@ class FotoResult(NamedTuple):
 def init_state(rho0: torch.Tensor, rhoT: torch.Tensor, Nt: int) -> FotoState:
     """Initial ALG2 state: density channel linearly interpolated in time
     between rho0 and rhoT, momenta and duals zero
-    (reference benamou_brenier.py:191-194)."""
+    (reference benamou_brenier.py:191-194).
+
+    (B, Ny, Nx) frames give a lockstep batch's state: fields (B, ...) with
+    the components on axis 1, and (B,) criteria, counters and flags."""
     dtype, device = rho0.dtype, rho0.device
+    pairs = rho0.shape[:-2]
     w = torch.arange(Nt, dtype=dtype, device=device)[:, None, None] / (Nt - 1)
-    rho_init = (1.0 - w) * rho0[None] + w * rhoT[None]
+    rho_init = (1.0 - w) * rho0.unsqueeze(-3) + w * rhoT.unsqueeze(-3)
     zero = torch.zeros_like(rho_init)
-    mu = torch.stack([rho_init, zero, zero])
-    minus_one = torch.full((), -1.0, dtype=dtype, device=device)
+    mu = torch.stack([rho_init, zero, zero], dim=len(pairs))
+    minus_one = torch.full(pairs, -1.0, dtype=dtype, device=device)
+    count = (torch.zeros(pairs, dtype=torch.int64, device=device)
+             if pairs else 0)
     return FotoState(
         mu=mu, q=torch.zeros_like(mu), phi=zero,
         crit=minus_one, prev_crit=minus_one.clone(),
-        iteration=0, cg_iterations=0,
-        done=torch.zeros((), dtype=torch.bool, device=device))
+        iteration=count, cg_iterations=count,
+        done=torch.zeros(pairs, dtype=torch.bool, device=device))
 
 
 def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, cg_rtol, cg_maxiter,
@@ -217,13 +302,19 @@ def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, cg_rtol, cg_maxiter,
     (reference benamou_brenier.py:26-91)."""
     dt = 1.0
     F = ops.div_st(mu - r * q, bc="N")
-    rho, a = mu[0], q[0]
-    g0 = rho0 - rho[0] + r * a[0]
-    gN = rhoT - rho[-1] + r * a[-1]
-    # F is a fresh tensor: add the boundary slices in place
-    F[0] += -(1.0 / dt) * g0
-    F[-1] += (1.0 / dt) * gN
+    rho, a = mu.select(ops.cax, 0), q.select(ops.cax, 0)
+    _add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
     return ops.stepA_solve(F, r, reg_epsilon, cg_rtol, cg_maxiter)
+
+
+def _add_time_boundary(F, rho, a, rho0, rhoT, r, dt):
+    """Add the non-homogeneous Neumann time-boundary terms that inject
+    rho0 / rhoT into F's first and last time planes, in place (F is a
+    fresh tensor); the t axis is -3, also in a batch."""
+    g0 = rho0 - rho.select(-3, 0) + r * a.select(-3, 0)
+    gN = rhoT - rho.select(-3, -1) + r * a.select(-3, -1)
+    F.select(-3, 0).add_(-(1.0 / dt) * g0)
+    F.select(-3, -1).add_((1.0 / dt) * gN)
 
 
 def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,
@@ -254,13 +345,16 @@ def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,
                    admm_alpha * grad_phi + (1.0 - admm_alpha) * q_prev)
         q = ops.project(relaxed + mu / r)
         mu = mu + r * (relaxed - q)
-        mu[0].clamp_(min=0.0)        # density positivity; mu is fresh
+        # density positivity; mu is fresh
+        mu.select(ops.cax, 0).clamp_(min=0.0)
 
         # Hamilton–Jacobi residual criterion
         # (reference benamou_brenier.py:246-251)
-        res = grad_phi[0] + 0.5 * (grad_phi[1] ** 2 + grad_phi[2] ** 2)
-        num = ops.sum(mu[0] * torch.abs(res))
-        denom = ops.sum(mu[0] * (grad_phi[1] ** 2 + grad_phi[2] ** 2))
+        g0, g1, g2 = (grad_phi.select(ops.cax, i) for i in range(3))
+        rho = mu.select(ops.cax, 0)
+        res = g0 + 0.5 * (g1 ** 2 + g2 ** 2)
+        num = ops.sum(rho * torch.abs(res))
+        denom = ops.sum(rho * (g1 ** 2 + g2 ** 2))
     crit = torch.sqrt(num / (denom + 1e-10))
 
     prev_crit = state.crit
@@ -269,12 +363,18 @@ def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,
     done = done | torch.isnan(crit)
 
     if verbose:
-        print(f"{crit.item()} ({state.iteration + 1}/{max_it})")
+        print(f"{_shown(crit)} ({_shown(state.iteration + 1)}/{max_it})")
 
     return FotoState(mu=mu, q=q, phi=phi, crit=crit, prev_crit=prev_crit,
                      iteration=state.iteration + 1,
                      cg_iterations=state.cg_iterations + cg_iters,
                      done=done)
+
+
+def _shown(x):
+    """A criterion or count as the verbose line prints it (a list for a
+    batch)."""
+    return x.tolist() if isinstance(x, torch.Tensor) else x
 
 
 def scale_invariant_r(rho0, rhoT, r=1.0, ops=DEFAULT_OPS):
@@ -305,6 +405,38 @@ def alg2_loop(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
 
 
 solve_potential = alg2_loop
+
+
+def lockstep_r(rho0, rhoT, r, ops, auto_r):
+    """The penalty of a lockstep batch: ``r`` itself, or with ``auto_r``
+    each pair's own ``scale_invariant_r`` as a ``PerPair`` (its float, as a
+    single pair's solve takes it)."""
+    if not auto_r:
+        return r
+    return PerPair(scale_invariant_r(rho0, rhoT, r, ops=ops).tolist(), rho0)
+
+
+def alg2_loop_batched(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
+                      reg_epsilon=1e-3, max_it=100, cg_rtol=1e-6,
+                      cg_maxiter=1000, verbose=False, ops=DEFAULT_OPS,
+                      admm_alpha=1.0, auto_r=False,
+                      init: FotoState | None = None) -> FotoState:
+    """ALG2 on a lockstep batch: ``rho0``/``rhoT`` are (B, Ny, Nx), every
+    pair runs the iteration of :func:`alg2_loop` in one loop, and each
+    stops on its own rule (its fields, criteria and counters then stay as
+    they were).  Returns a FotoState with a leading batch axis and (B,)
+    counters, as JAX's ``vmap`` of ``solve_potential`` does."""
+    ops = lockstep_ops(ops)
+    r = lockstep_r(rho0, rhoT, r, ops, auto_r)
+    state = init_state(rho0, rhoT, Nt) if init is None else init
+    return lockstep.run(state, lambda s: alg2_iteration(
+        s, rho0, rhoT, r=r, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it, ops=ops,
+        admm_alpha=admm_alpha), max_it)
+
+
+solve_potential_batched = alg2_loop_batched
 
 
 def solve_potential_with_history(rho0, rhoT, Nt, iterations, *, r=1.0,

@@ -25,6 +25,12 @@ inverted in closed form (Sherman–Morrison), or the spectral one, the exact
 inverse of the smoothness operator plus the mean data diagonal in the 2-D
 DCT-II basis (``solvers/dct.py``).  No TPU kernel lies on this path in the
 JAX package, and none does here.
+
+(B, Ny, Nx) frames solve a lockstep batch (JAX's ``vmap`` of
+``solve_fields``): the unknowns are (B, 3, Ny, Nx), the component axis is
+-3 throughout, each pair has its own gradients, operator and
+preconditioner coefficients, and the masked batched CG
+(``cg.cg_batched``) stops each pair on its own residual.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 
 from ofot_tpu_torch.ops import operators, stencils
 from ofot_tpu_torch.solvers import dct
-from ofot_tpu_torch.solvers.cg import CGResult, cg
+from ofot_tpu_torch.solvers.cg import CGResult, cg, cg_batched
 
 
 class GNResult(NamedTuple):
@@ -65,22 +71,25 @@ def _lap_diag(Ny: int, Nx: int, dtype, device) -> torch.Tensor:
 
 
 def make_operator(f2, alpha, lambda_):
-    """Returns (A, M): the block operator action on (3, Ny, Nx) tensors and
-    its Sherman–Morrison block-Jacobi preconditioner."""
+    """Returns (A, M): the block operator action on (3, Ny, Nx) tensors
+    ((B, 3, Ny, Nx) for (B, Ny, Nx) frames) and its Sherman–Morrison
+    block-Jacobi preconditioner."""
     fx, fy = image_gradients(f2)
-    g = torch.stack([fx, fy, -f2])        # rank-1 data direction per pixel
+    # rank-1 data direction per pixel
+    g = torch.stack([fx, fy, -f2], dim=-3)
+    g0, g1, g2 = g.unbind(-3)
 
     def A(x):
-        u, v, m = x[0], x[1], x[2]
+        u, v, m = x.unbind(-3)
         smooth = torch.stack([
             -alpha * operators.lap_gn(u),
             -alpha * operators.lap_gn(v),
             -lambda_ * operators.lap_gn(m),
-        ])
-        data = g * (g[0] * u + g[1] * v + g[2] * m)[None]
+        ], dim=-3)
+        data = g * (g0 * u + g1 * v + g2 * m).unsqueeze(-3)
         return smooth + data
 
-    Ny, Nx = f2.shape
+    Ny, Nx = f2.shape[-2:]
     ld = _lap_diag(Ny, Nx, f2.dtype, f2.device)
     d = torch.stack([alpha * ld, alpha * ld, lambda_ * ld])
     return A, make_jacobi_block_preconditioner(g, d)
@@ -90,14 +99,15 @@ def make_jacobi_block_preconditioner(g, d):
     """Pointwise Sherman–Morrison block-Jacobi preconditioner shared by the
     GN and Horn–Schunck solvers: per pixel, the exact inverse of
     ``diag(d) + g g^T`` (k x k, rank-1 data block on the smoothness
-    diagonal ``d``)."""
+    diagonal ``d``).  The component axis is -3 (a leading batch axis
+    rides along)."""
     dinv = 1.0 / d
-    denom = 1.0 + torch.sum(g * g * dinv, dim=0)
+    denom = 1.0 + torch.sum(g * g * dinv, dim=-3)
 
     def M(rhs):
         # (D + g g^T)^-1 = D^-1 - D^-1 g g^T D^-1 / (1 + g^T D^-1 g)
-        t = torch.sum(g * dinv * rhs, dim=0)
-        return dinv * rhs - dinv * g * (t / denom)[None]
+        t = torch.sum(g * dinv * rhs, dim=-3)
+        return dinv * rhs - dinv * g * (t / denom).unsqueeze(-3)
 
     return M
 
@@ -107,13 +117,14 @@ def make_spectral_block_preconditioner(g, coefs):
     Horn–Schunck solvers: per component i, the exact inverse of
     ``coefs[i] * (-L) + mean(g_i^2) * I`` in the 2-D DCT-II basis.
 
-    ``g`` is the (k, Ny, Nx) per-pixel data direction; ``coefs`` the k
-    smoothness weights.  Entries where the spectrum is exactly zero — the
+    ``g`` is the (k, Ny, Nx) per-pixel data direction ((B, k, Ny, Nx) for
+    a lockstep batch, whose pairs each get their own mean data diagonal);
+    ``coefs`` the k smoothness weights.  Entries where the spectrum is exactly zero — the
     DC mode of a component whose data term vanishes identically, e.g.
     fx == 0 for frames constant along x — act as identity instead of
     producing 0/0 = NaN (the operator itself is singular there and the
     corresponding rhs component is zero, so CG never excites the mode)."""
-    k, Ny, Nx = g.shape
+    Ny, Nx = g.shape[-2:]
     # the transform routes are resolved once, for both the spectrum and
     # the transforms, so that their frequency orders cannot disagree
     transform = dct.SeparableDCT((Ny, Nx), g.dtype, g.device)
@@ -122,7 +133,7 @@ def make_spectral_block_preconditioner(g, coefs):
         Ny, Nx, np_dtype, modes=transform.modes), device=g.device)
     coef = torch.tensor(coefs, dtype=g.dtype, device=g.device)
     c = torch.mean(g * g, dim=(-2, -1))            # mean data diagonal
-    spec = coef[:, None, None] * lam[None] + c[:, None, None]
+    spec = coef[:, None, None] * lam[None] + c[..., None, None]
     spec = torch.where(spec == 0, torch.ones((), dtype=g.dtype,
                                              device=g.device), spec)
 
@@ -142,14 +153,15 @@ def make_spectral_preconditioner(f2, alpha, lambda_):
     long-wavelength ill-conditioning that the pointwise block-Jacobi
     preconditioner cannot touch."""
     fx, fy = image_gradients(f2)
-    g = torch.stack([fx, fy, -f2])
+    g = torch.stack([fx, fy, -f2], dim=-3)
     return make_spectral_block_preconditioner(g, (alpha, alpha, lambda_))
 
 
 def solve_fields(f1, f2, alpha=0.1, lambda_=0.2, rtol=1e-10, maxiter=5000,
                  precond="spectral"):
     """Solve the GN system on the device of ``f1``/``f2``; returns a
-    GNResult of (Ny, Nx) fields.
+    GNResult of (Ny, Nx) fields.  (B, Ny, Nx) frames solve a lockstep batch
+    and return (B, Ny, Nx) fields and a CGResult of (B,) tensors.
 
     ``precond``: "spectral" (DCT inverse of smoothness + mean data — a few
     dozen CG steps) or "jacobi" (pointwise Sherman–Morrison 3x3 blocks)."""
@@ -159,11 +171,12 @@ def solve_fields(f1, f2, alpha=0.1, lambda_=0.2, rtol=1e-10, maxiter=5000,
     A, M_jac = make_operator(f2, alpha, lambda_)
     M = (make_spectral_preconditioner(f2, alpha, lambda_)
          if precond == "spectral" else M_jac)
-    b = torch.stack([-fx * ft, -fy * ft, f2 * ft])
+    b = torch.stack([-fx * ft, -fy * ft, f2 * ft], dim=-3)
 
-    res = cg(A, b, rtol=rtol, maxiter=maxiter, M=M)
-    x = res.x
-    return GNResult(u=x[0], v=x[1], m=x[2], cg=res)
+    solver = cg_batched if f2.dim() == 3 else cg
+    res = solver(A, b, rtol=rtol, maxiter=maxiter, M=M)
+    u, v, m = res.x.unbind(-3)
+    return GNResult(u=u, v=v, m=m, cg=res)
 
 
 class GLLOpticalFlow:

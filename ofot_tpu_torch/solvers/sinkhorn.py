@@ -40,6 +40,15 @@ error once per block of ``check_every`` iterations (one device-to-host
 copy a block), with the last block capped at the remaining budget so that
 ``max_iter`` is a hard ceiling.  ``flow`` is eager (``jax.jit`` with a
 static epsilon in JAX), so ``theta`` is always range-checked.
+
+``solve``, ``solve_annealed`` and ``flow`` also take (B, Ny, Nx) stacks: a
+lockstep batch (JAX's ``vmap`` of them).  Every product, softmin and
+reduction then runs over the batch at once, each pair keeps its own
+normalization, marginal error and stopping block (a pair that has stopped
+keeps its potentials through a select, and the loop reads one "all pairs
+done" flag per block), and ``iterations``, ``marginal_error`` and the
+costs are (B,) tensors.  The annealing ladder depends only on (Ny, Nx,
+epsilon), so the pairs share it.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ class SinkhornResult(NamedTuple):
     f: torch.Tensor               # (Ny, Nx) dual potential for a
     g: torch.Tensor               # (Ny, Nx) dual potential for b
     marginal_error: torch.Tensor  # L1 error of P's marginals (0-d)
-    iterations: int
+    iterations: int               # (B,) tensors in a batch, as above
 
 
 class FlowResult(NamedTuple):
@@ -111,6 +120,19 @@ def _gibbs_1d(n: int, epsilon, dtype, device) -> torch.Tensor:
     return torch.exp(-d2 / epsilon)
 
 
+def _grid_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The sum over the (Ny, Nx) grid: 0-d for one field, (B,) (or
+    (B, 1, 1) with ``keepdim``) for a batch."""
+    if x.dim() == 2:
+        return torch.sum(x)
+    return torch.sum(x, dim=(-2, -1), keepdim=keepdim)
+
+
+def _larger(x, y):
+    """The larger of two iteration counts (ints, or (B,) tensors)."""
+    return torch.maximum(x, y) if isinstance(x, torch.Tensor) else max(x, y)
+
+
 def _tiny(dtype, device) -> torch.Tensor:
     return torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
 
@@ -140,10 +162,11 @@ def _exact_stats(h: torch.Tensor, eps, *, want_means: bool,
     broadcast temporaries at (Ny, Nx, chunk); the last chunk is short
     where ``chunk`` does not divide Nx (the JAX version pads it with
     clamped duplicate columns and drops them, which gives the same
-    values).  Returns S, or (S, ty, tx, ec), each (Ny, Nx).
+    values).  Returns S, or (S, ty, tx, ec), each (Ny, Nx) ((B, Ny, Nx)
+    for a (B, Ny, Nx) batch, which stays in front of every temporary).
     """
     dtype, device = h.dtype, h.device
-    Ny, Nx = h.shape
+    Ny, Nx = h.shape[-2:]
     eps = torch.as_tensor(eps, dtype=dtype, device=device)
     ixp = torch.arange(Nx, dtype=dtype, device=device)     # source x'
     iyp = torch.arange(Ny, dtype=dtype, device=device)     # source y'
@@ -153,28 +176,28 @@ def _exact_stats(h: torch.Tensor, eps, *, want_means: bool,
     for start in range(0, Nx, cs):
         xs = ixp[start:start + cs]                          # output cols
         d2x_c = (ixp[:, None] - xs[None, :]) ** 2           # (Nx', cs)
-        A = (h[:, :, None] - d2x_c[None, :, :]) / eps       # (Ny', Nx', cs)
-        M1 = torch.amax(A, dim=1)                           # (Ny', cs)
-        E1 = torch.exp(A - M1[:, None, :])
-        den1 = torch.sum(E1, dim=1)                         # >= 1
+        A = (h[..., :, :, None] - d2x_c[None, :, :]) / eps  # (Ny', Nx', cs)
+        M1 = torch.amax(A, dim=-2)                          # (Ny', cs)
+        E1 = torch.exp(A - M1[..., :, None, :])
+        den1 = torch.sum(E1, dim=-2)                        # >= 1
         L1 = M1 + torch.log(den1)                           # nats
-        B = L1[:, None, :] - d2y[:, :, None] / eps          # (Ny', Ny, cs)
-        M2 = torch.amax(B, dim=0)                           # (Ny, cs)
-        E2 = torch.exp(B - M2[None, :, :])
-        den2 = torch.sum(E2, dim=0)
+        B = L1[..., :, None, :] - d2y[:, :, None] / eps     # (Ny', Ny, cs)
+        M2 = torch.amax(B, dim=-3)                          # (Ny, cs)
+        E2 = torch.exp(B - M2[..., None, :, :])
+        den2 = torch.sum(E2, dim=-3)
         S = eps * (M2 + torch.log(den2))                    # softmin chunk
         if not want_means:
             parts.append((S,))
             continue
-        ex1 = torch.sum(E1 * ixp[None, :, None], dim=1) / den1  # E[x'|y',x]
-        ec1 = torch.sum(E1 * d2x_c[None, :, :], dim=1) / den1   # E[(x-x')^2]
-        w = E2 / den2[None, :, :]
-        ty = torch.sum(w * iyp[:, None, None], dim=0)
-        tx = torch.sum(w * ex1[:, None, :], dim=0)
-        ec = (torch.sum(w * d2y[:, :, None], dim=0)
-              + torch.sum(w * ec1[:, None, :], dim=0))
+        ex1 = torch.sum(E1 * ixp[None, :, None], dim=-2) / den1  # E[x'|y',x]
+        ec1 = torch.sum(E1 * d2x_c[None, :, :], dim=-2) / den1   # E[(x-x')^2]
+        w = E2 / den2[..., None, :, :]
+        ty = torch.sum(w * iyp[:, None, None], dim=-3)
+        tx = torch.sum(w * ex1[..., :, None, :], dim=-3)
+        ec = (torch.sum(w * d2y[:, :, None], dim=-3)
+              + torch.sum(w * ec1[..., :, None, :], dim=-3))
         parts.append((S, ty, tx, ec))
-    outs = tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    outs = tuple(torch.cat(p, dim=-1) for p in zip(*parts))
     return outs if want_means else outs[0]
 
 
@@ -261,9 +284,9 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
                 init_g, theta, stabilizer, verify) -> SinkhornResult:
     dtype, device = a.dtype, a.device
     eps = torch.as_tensor(epsilon, dtype=dtype, device=device)
-    Ny, Nx = a.shape
-    a = a / torch.sum(a)
-    b = b / torch.sum(b)
+    Ny, Nx = a.shape[-2:]
+    a = a / _grid_sum(a, keepdim=True)
+    b = b / _grid_sum(b, keepdim=True)
     Ky = _gibbs_1d(Ny, eps, dtype, device)
     Kx = _gibbs_1d(Nx, eps, dtype, device)
     tiny = _tiny(dtype, device)
@@ -290,22 +313,36 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
 
     f = torch.zeros_like(a) if init_f is None else init_f
     g = torch.zeros_like(a) if init_g is None else init_g
-    err = torch.tensor(float("inf"), dtype=dtype, device=device)
+    pairs = a.shape[:-2]      # () for one pair, (B,) for a batch
+    err = torch.full(pairs, float("inf"), dtype=dtype, device=device)
+    # each pair's count, and which pairs have stopped
+    its = torch.zeros(pairs, dtype=torch.int64, device=device)
+    done = torch.zeros(pairs, dtype=torch.bool, device=device)
     it = 0
     while it < max_iter:
         # the last block capped at the remaining budget
         n = min(check_every, max_iter - it)
+        f_new, g_new = f, g
         for _ in range(n):
-            f = (1.0 - th) * f + th * (la - softmin(g))
-            g = (1.0 - th) * g + th * (lb - softmin(f))
+            f_new = (1.0 - th) * f_new + th * (la - softmin(g_new))
+            g_new = (1.0 - th) * g_new + th * (lb - softmin(f_new))
         # both plan marginals: the over-relaxed iteration can satisfy a
         # and miss b
-        err_a = torch.sum(torch.abs(torch.exp((f + softmin(g)) / eps) - a))
-        err_b = torch.sum(torch.abs(torch.exp((g + softmin(f)) / eps) - b))
-        err = torch.maximum(err_a, err_b)
+        err_a = _grid_sum(torch.abs(
+            torch.exp((f_new + softmin(g_new)) / eps) - a))
+        err_b = _grid_sum(torch.abs(
+            torch.exp((g_new + softmin(f_new)) / eps) - b))
         it += n
+        # a pair that stopped at an earlier block keeps its state
+        run = ~done
+        keep = run.view(*pairs, 1, 1)
+        f = torch.where(keep, f_new, f)
+        g = torch.where(keep, g_new, g)
+        err = torch.where(run, torch.maximum(err_a, err_b), err)
+        its = torch.where(run, it, its)
+        done = done | ~(err > tol)
         # the one read of a block: the JAX while_loop's condition
-        if not bool(err > tol):
+        if bool(done.all()):
             break
 
     # entropic cost <P, C>, gauge-free: sum_i a_i E_i with E_i the plan
@@ -325,19 +362,19 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
         # sum up to inf
         E = torch.where(den > _den_floor(dtype, device),
                         (numCy + numCx) / torch.maximum(den, tiny), 0.0)
-    cost = torch.sum(a * E)
+    cost = _grid_sum(a * E)
     if stabilizer == "matmul" and verify:
         # the final marginals once more with the exactly-shifted softmin,
         # so that a silent matmul-softmin failure (a small iteration error
         # for a garbage plan past the exp window) surfaces as
         # marginal_error >> tol
-        err_a = torch.sum(torch.abs(torch.exp(
+        err_a = _grid_sum(torch.abs(torch.exp(
             (f + _exact_stats(g, eps, want_means=False)) / eps) - a))
-        err_b = torch.sum(torch.abs(torch.exp(
+        err_b = _grid_sum(torch.abs(torch.exp(
             (g + _exact_stats(f, eps, want_means=False)) / eps) - b))
         err = torch.maximum(err, torch.maximum(err_a, err_b))
     return SinkhornResult(cost=cost, f=f, g=g, marginal_error=err,
-                          iterations=it)
+                          iterations=its if pairs else int(its))
 
 
 def solve_annealed(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
@@ -363,7 +400,7 @@ def solve_annealed(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
         raise ValueError(f"anneal_factor={anneal_factor} must be > 1")
     if not float(epsilon) > 0.0:
         raise ValueError(f"epsilon={epsilon} must be > 0")
-    Ny, Nx = a.shape
+    Ny, Nx = a.shape[-2:]
     eps0 = float(anneal_from if anneal_from is not None
                  else (max(Ny, Nx) / 2.0) ** 2)
     ladder = []
@@ -405,8 +442,8 @@ def flow(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
     """
     dtype, device = a.dtype, a.device
     eps = torch.as_tensor(epsilon, dtype=dtype, device=device)
-    Ny, Nx = a.shape
-    an = a / torch.sum(a)
+    Ny, Nx = a.shape[-2:]
+    an = a / _grid_sum(a, keepdim=True)
     _solve = solve_annealed if anneal else solve
     kw = dict(max_iter=max_iter, tol=tol, check_every=check_every,
               theta=theta, stabilizer=stabilizer)
@@ -437,7 +474,7 @@ def flow(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
             y0, x0, ok0 = bary(self_res.g)
             ok = ok & ok0
             err = torch.maximum(res.marginal_error, self_res.marginal_error)
-            its = max(res.iterations, self_res.iterations)
+            its = _larger(res.iterations, self_res.iterations)
             cost_aa = self_res.cost
         else:
             y0 = torch.arange(Ny, dtype=dtype, device=device)[:, None] \
@@ -445,8 +482,10 @@ def flow(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
             x0 = torch.arange(Nx, dtype=dtype, device=device)[None, :] \
                 .expand(Ny, Nx)
             err, its = res.marginal_error, res.iterations
-            cost_aa = torch.tensor(float("nan"), dtype=dtype, device=device)
-        support = (an > support_floor * torch.amax(an)) & ok
+            cost_aa = torch.full(a.shape[:-2], float("nan"), dtype=dtype,
+                                 device=device)
+        support = (an > support_floor * torch.amax(
+            an, dim=(-2, -1), keepdim=True)) & ok
         u = torch.where(support, tx - x0, 0.0)
         v = torch.where(support, ty - y0, 0.0)
     return FlowResult(u=u, v=v, marginal_error=err, iterations=its,

@@ -24,6 +24,8 @@ State: ``foto.FotoState`` with mu, q of shape (4, Nt, Ny, Nx) — components
 (rho, m1, m2, sigma) where sigma = delta * zeta is the scaled source; the
 .npz checkpoint layout is unchanged.  As in the port's FOTO, the loop runs
 on the host and reads the ``done`` flag once per iteration.
+:func:`solve_potential_batched` runs a lockstep batch of pairs, as
+``foto.solve_potential_batched`` does.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from ofot_tpu_torch.solvers import flow_extract, foto
+from ofot_tpu_torch.solvers import flow_extract, foto, lockstep
 
 
 class WfrResult(NamedTuple):
@@ -68,9 +70,11 @@ def resolve_stepA_solver(solver: str, device) -> str:
 def init_state(rho0, rhoT, Nt: int) -> foto.FotoState:
     """Balanced init extended with a zero source channel."""
     st = foto.init_state(rho0, rhoT, Nt)
-    zero = st.mu[:1] * 0.0     # as the JAX package: NaN density stays NaN
-    return st._replace(mu=torch.cat([st.mu, zero]),
-                       q=torch.cat([st.q, zero]))
+    cax = rho0.dim() - 2        # 1 for a (B, Ny, Nx) batch
+    # as the JAX package: NaN density stays NaN
+    zero = st.mu.narrow(cax, 0, 1) * 0.0
+    return st._replace(mu=torch.cat([st.mu, zero], dim=cax),
+                       q=torch.cat([st.q, zero], dim=cax))
 
 
 def G_st(phi, delta, ops=foto.DEFAULT_OPS):
@@ -78,7 +82,8 @@ def G_st(phi, delta, ops=foto.DEFAULT_OPS):
 
     The + sign of the source component is the one for which stationarity
     of <mu, G phi> in phi reproduces ``dt rho + div m = +zeta``."""
-    return torch.cat([ops.grad_st(phi, bc="N"), (phi / delta)[None]])
+    return torch.cat([ops.grad_st(phi, bc="N"),
+                      (phi / delta).unsqueeze(ops.cax)], dim=ops.cax)
 
 
 def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, delta, cg_rtol, cg_maxiter,
@@ -90,13 +95,10 @@ def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, delta, cg_rtol, cg_maxiter,
     1/delta^2."""
     dt = 1.0
     x = mu - r * q
-    F = ops.div_st(x[:3], bc="N") - x[3] / delta
-    rho, a = mu[0], q[0]
-    g0 = rho0 - rho[0] + r * a[0]
-    gN = rhoT - rho[-1] + r * a[-1]
-    # F is a fresh tensor: add the boundary slices in place
-    F[0] += -(1.0 / dt) * g0
-    F[-1] += (1.0 / dt) * gN
+    F = (ops.div_st(x.narrow(ops.cax, 0, 3), bc="N")
+         - x.select(ops.cax, 3) / delta)
+    rho, a = mu.select(ops.cax, 0), q.select(ops.cax, 0)
+    foto._add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
 
     eps_eff = reg_epsilon + 1.0 / (delta * delta)
     return ops.stepA_solve(F, r, eps_eff, cg_rtol, cg_maxiter)
@@ -133,14 +135,17 @@ def alg2_iteration(state: foto.FotoState, rho0, rhoT, *, r, delta,
                    admm_alpha * gphi + (1.0 - admm_alpha) * q_prev)
         q = ops.project_nd(relaxed + mu / r)
         mu = mu + r * (relaxed - q)
-        mu[0].clamp_(min=0.0)        # density positivity; mu is fresh
+        # density positivity; mu is fresh
+        mu.select(ops.cax, 0).clamp_(min=0.0)
 
         # HJ criterion with the source term: dt phi + (|grad phi|^2
         # + phi^2/delta^2) / 2 = 0 on the support of rho
-        speed2 = gphi[1] ** 2 + gphi[2] ** 2 + gphi[3] ** 2
-        res = gphi[0] + 0.5 * speed2
-        num = ops.sum(mu[0] * torch.abs(res))
-        denom = ops.sum(mu[0] * speed2)
+        g0, g1, g2, g3 = (gphi.select(ops.cax, i) for i in range(4))
+        rho = mu.select(ops.cax, 0)
+        speed2 = g1 ** 2 + g2 ** 2 + g3 ** 2
+        res = g0 + 0.5 * speed2
+        num = ops.sum(rho * torch.abs(res))
+        denom = ops.sum(rho * speed2)
     crit = torch.sqrt(num / (denom + 1e-10))
 
     prev_crit = state.crit
@@ -149,7 +154,8 @@ def alg2_iteration(state: foto.FotoState, rho0, rhoT, *, r, delta,
     done = done | torch.isnan(crit)
 
     if verbose:
-        print(f"{crit.item()} ({state.iteration + 1}/{max_it})")
+        print(f"{foto._shown(crit)} ({foto._shown(state.iteration + 1)}"
+              f"/{max_it})")
 
     return foto.FotoState(mu=mu, q=q, phi=phi, crit=crit,
                           prev_crit=prev_crit,
@@ -182,6 +188,27 @@ def alg2_loop(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
 
 
 solve_potential = alg2_loop
+
+
+def alg2_loop_batched(rho0, rhoT, Nt, *, delta=10.0, r=1.0,
+                      convergence_tol=0.3, reg_epsilon=1e-3, max_it=100,
+                      cg_rtol=1e-6, cg_maxiter=1000, verbose=False, ops=None,
+                      admm_alpha=1.0, auto_r=False,
+                      init: foto.FotoState | None = None) -> foto.FotoState:
+    """Unbalanced ALG2 on a lockstep batch of (B, Ny, Nx) frames, each
+    pair stopping on its own rule, as ``foto.alg2_loop_batched`` runs the
+    balanced one.  ``ops`` defaults to a fresh ``dct`` set."""
+    ops = foto.lockstep_ops(foto.stepA_ops("dct") if ops is None else ops)
+    r = foto.lockstep_r(rho0, rhoT, r, ops, auto_r)
+    state = init_state(rho0, rhoT, Nt) if init is None else init
+    return lockstep.run(state, lambda s: alg2_iteration(
+        s, rho0, rhoT, r=r, delta=delta, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it, ops=ops,
+        admm_alpha=admm_alpha), max_it)
+
+
+solve_potential_batched = alg2_loop_batched
 
 
 def solve(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,

@@ -57,6 +57,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.solvers.sinkhorn\n"
         "import ofot_tpu_torch.solvers.otgrad\n"
         "import ofot_tpu_torch.solvers.implicit\n"
+        "import ofot_tpu_torch.solvers.lockstep\n"
         "import ofot_tpu_torch.utils.trace\n"
         "import ofot_tpu_torch.utils.colorwheel\n"
         "import ofot_tpu_torch.cli.pipeline, ofot_tpu_torch.cli.data_diff\n"

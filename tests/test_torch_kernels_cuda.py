@@ -445,3 +445,99 @@ def test_sinkhorn_float64_rescue_runs_on_card(cuda_device, tmp_path,
     assert row["escalated_f64"] is True
     assert seen[-1] == ("cuda", torch.float64)
     assert {dev for dev, _ in seen} == {"cuda"}
+
+
+# ------------------------------------------------------- lockstep batches
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncomp", [3, 4])
+@pytest.mark.parametrize("alpha", [None, 1.7])
+def test_batched_fused_pointwise_on_card(cuda_device, ncomp, alpha):
+    """One launch for 3 pairs with a per-pair r: against the plain version,
+    and each pair bitwise its single-pair launch (fields and sums)."""
+    per = [_inputs(ncomp, (4, 24, 40), alpha is not None, cuda_device)
+           for _ in range(3)]
+    g, m, qp = (None if per[0][j] is None
+                else torch.stack([p[j] for p in per]) for j in range(3))
+    r = torch.tensor([0.7, 1.0, 1.3], device=cuda_device)
+    before = fp.launches
+    got = fp.fused_pointwise_batched(g, m, r, alpha, qp)
+    torch.cuda.synchronize()
+    assert fp.launches == before + 1
+    want = fp.fused_pointwise_batched_reference(g, m, r, alpha, qp)
+    _assert_close(got, want)
+    for i in range(3):
+        one = fp.fused_pointwise(g[i], m[i], float(r[i]), alpha,
+                                 None if qp is None else qp[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(got, one))
+
+
+@pytest.mark.cuda
+def test_batched_dct_solve_on_card(cuda_device):
+    """B*Nt slices in one call with a per-pair r: against the plain
+    version, and the slice kernel bitwise its single-pair launches."""
+    F = torch.from_numpy(RNG.standard_normal((3, 5, 17, 24)).astype(
+        np.float32)).to(cuda_device)
+    r, eps = torch.tensor([0.3, 1.0, 2.5], device=cuda_device), 1e-2
+    got = ds.dct_solve(F, r, eps)
+    want = ds.dct_solve_reference(F, r, eps)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 5e-6 * float(
+        want.abs().max())
+    p = ds._plan_for(F, r, eps)
+    Fz = ds.t_forward(F, p)
+    enqueue, out = ds.prepare_launch(Fz, p, r)
+    enqueue()
+    for i in range(3):
+        e, o = ds.prepare_launch(Fz[i].contiguous(), ds.plan(
+            (5, 17, 24), F.dtype, F.device, float(r[i]), eps))
+        e()
+        assert torch.equal(o, out[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 17, 23), (4, 48, 40)])
+def test_batched_cg_operator_on_card(cuda_device, shape):
+    """One launch over 3 pairs: the 'N' time rows at each pair's own
+    planes, each pair bitwise its single-pair launch."""
+    x = torch.from_numpy(RNG.standard_normal((3,) + shape).astype(
+        np.float32)).to(cuda_device)
+    r = torch.tensor([0.5, 1.0, 2.0], device=cuda_device)
+    before = cgk.blocked_launches
+    got = cgk.cg_operator_blocked(x, r, 1e-2)
+    torch.cuda.synchronize()
+    assert cgk.blocked_launches == before + 1
+    torch.testing.assert_close(got, cgk.cg_operator_reference(x, r, 1e-2),
+                               atol=1e-5, rtol=0)
+    for i in range(3):
+        assert torch.equal(got[i], cgk.cg_operator_blocked(
+            x[i], float(r[i]), 1e-2))
+
+
+@pytest.mark.cuda
+def test_lockstep_solve_batch_full_on_card(cuda_device):
+    """The lockstep batch on the card: FOTO (fused kernel, one launch per
+    lockstep iteration) and GN against map mode on the same pairs."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.parallel import sweep
+    a = RNG.uniform(0.1, 0.9, (3, 24, 28)).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(1, 2))
+    b[1] = np.roll(a[1], (-2, 1), axis=(0, 1))
+    fp_ = dict(Nt=4, r=1.0, convergence_tol=0.01, reg_epsilon=1e-2,
+               max_it=40, admm_alpha=1.7)
+    kernels.reset_launch_counts()
+    u, v, m, d = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
+                                        batch_mode="vmap", device="cuda")
+    assert kernels.launch_counts()["fused_pointwise"] == \
+        int(d["iterations"].max())
+    um, vm, mm, dm = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
+                                            device="cuda")
+    for i in range(3):
+        if d["iterations"][i] == dm["iterations"][i]:
+            assert float(torch.hypot(u[i] - um[i], v[i] - vm[i]).mean()) \
+                < 1e-3
+    g = sweep.solve_batch_full("GN", a, b, batch_mode="vmap", device="cuda")
+    gm = sweep.solve_batch_full("GN", a, b, device="cuda")
+    assert np.abs(g[3]["inner_iterations"]
+                  - gm[3]["inner_iterations"]).max() <= 3
+    torch.testing.assert_close(g[0], gm[0], atol=1e-4, rtol=1e-4)

@@ -139,8 +139,14 @@ def test_group_by_shape_and_pad_batch():
 
 def test_vmap_and_mesh_raise(frames):
     f1s, f2s = frames
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sweep.solve_batch_full("foto", f1s, f2s, None, batch_mode="vmap",
+    # the lockstep batch runs now; only the mesh still raises
+    u, v, m, diag = sweep.solve_batch_full(
+        "foto", f1s, f2s, None, batch_mode="vmap", device="cpu",
+        foto_params=dict(Nt=4, max_it=2, stepA_solver="dct"))
+    assert u.shape == v.shape == m.shape == f1s.shape
+    assert diag["iterations"].tolist() == [2, 2, 2]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sweep.solve_batch_full("foto", f1s, f2s, object(), batch_mode="vmap",
                                device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         sweep.solve_batch_full("foto", f1s, f2s, object(), device="cpu")
