@@ -108,7 +108,33 @@ Phases, each printed with its elapsed seconds:
    iterations (device idle share), map against lockstep wall / n per
    algo, ms per lockstep iteration and peak memory.  Then ``run --batch
    --batch-mode=vmap`` on phase 15's data with phase 15's checks, each
-   row's IE within 0.5% of the map batch's.
+   row's IE within 0.5% of the map batch's.  The batched #4's 39 MB
+   operand fits the L2, so it is timed cold too (rotating sets, as #3).
+17. bench: the port's bench (``ofot_tpu_torch.bench``, in process) at its
+   defaults (320x240, Nt=16, 200 fixed iterations, best of 5, the GN, WFR
+   and Sinkhorn families), then with ``--ops dct-fused`` and with
+   ``--batch 8`` (families off, best of 2); each JSON line logged, every value
+   finite, no ``families_error``; with the launch counts set to 0 just
+   before each run and read just after, ``fused_pointwise`` launched once
+   per ALG2 iteration of the ``auto`` (``pallas``) and batch runs (the WFR
+   family's iterations included) and ``dct_solve`` once per stepA solve of
+   the ``dct-fused`` run.
+18. distribution, every leg at 320x240, Nt=16: (a) this process as a world
+   of one rank on NCCL with a (1, 1) mesh: the tiled FOTO (cg set) and the
+   tiled GN (Jacobi) bitwise the single-device solves with the same method;
+   (b) four processes sharing the card on a gloo 2x2 mesh: tiled FOTO, WFR
+   and GN against the whole solves at float64 (atol 1e-8), the GSPMD route
+   with the ``pallas`` and ``dct-fused`` sets at float32 to their stopping
+   rule against the whole solve with the same set per solve (IE within
+   0.5%), the fused kernel (``pallas``, on the rank's tile) or the stepA
+   solve (``dct-fused``, on the gathered F) launched once per iteration on
+   every rank; the world's start-up logged apart from its cases; (c) ``run
+   --batch --data-parallel 2``, then 4, on phase 15's middlebury-1 data
+   against the one-process map batch (AEPE < 1e-4); (d) two
+   ``multihost_worker`` processes with ``--platform cuda``, each leg's wall
+   logged.  Cuts: the tiled FOTO and WFR run DIST_MAX_IT iterations, the
+   tiled GN at most DIST_GN_MAXITER CG steps, the workers' FOTO
+   DIST_WORKER_ITERS iterations.  Each leg's wall is logged.
 
 Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
 times it a second time cold, rotating over four input and output sets
@@ -130,6 +156,7 @@ not 0 and no result line is printed.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import statistics
@@ -1921,8 +1948,16 @@ def lockstep_cg_operator(device, mem_bw, f32_rate):
                  nbytes, ops,
                  f"; {LOCKSTEP_B} single launches {single_ms:.4f} ms by "
                  f"events, {single_dev:.4f} ms device")
+    # the 39 MB operand fits the L2: time it cold too, as phase 7 times #3
+    cold = cold_times(lambda i: cgk.prepare_launch(_uniform(
+        x.shape, device, SEED + 40 + i, -2, 2), r, eps)[0], nbytes)
+    _log(f"  cg_operator B={LOCKSTEP_B} cold: {cold['cold_ms']:.4f} ms by "
+         f"events, {cold['cold_device_ms']:.4f} ms device over "
+         f"{cold['cold_sets']} rotating sets; kernel at "
+         f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound by cold "
+         "device time")
     return dict(rec, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                singles_ms=single_ms, singles_device_ms=single_dev)
+                singles_ms=single_ms, singles_device_ms=single_dev, **cold)
 
 
 def lockstep_pairs(B=LOCKSTEP_B):
@@ -2175,6 +2210,400 @@ def run_lockstep_pipeline(workdir: Path, seqs):
     sweep_times(man, seqs, seconds, True)
 
 
+# ---------------------------------------------------------------- bench
+
+# Phase 17: the port's bench (python -m ofot_tpu_torch.bench) in process,
+# at its defaults (320x240, Nt=16, 200 iterations, best of 5, families
+# on), then with --ops dct-fused and with --batch 8 (families off, best of
+# 2: these two runs are there for their launch checks and readings).
+BENCH_ITERS, BENCH_REPEATS, BENCH_SHORT_REPEATS = 200, 5, 2
+BENCH_RUNS = (("auto", []),
+              ("dct-fused", ["--ops", "dct-fused", "--no-families",
+                             "--repeats", str(BENCH_SHORT_REPEATS)]),
+              ("batch 8", ["--batch", "8", "--no-families",
+                           "--repeats", str(BENCH_SHORT_REPEATS)]))
+
+
+def bench_alg2_iterations(families: bool, repeats: int) -> int:
+    """ALG2 iterations the bench runs with its primary ops set at
+    ``repeats``: the timed call's first run and repeats, the 5x arm's
+    first run and halved repeats (at least 2), and the WFR family's chain
+    (n and 5n iterations, a first call and 3 repeats each)."""
+    n = BENCH_ITERS
+    count = n * (1 + repeats) + 5 * n * (1 + max(2, repeats // 2))
+    if families:
+        w = max(2, n // 5)
+        count += 4 * w + 4 * 5 * w
+    return count
+
+
+def run_bench(label, extra):
+    """``ofot_tpu_torch.bench.main`` in process, every launch count set to
+    0 just before and read just after -> (JSON record, launches, s)."""
+    from ofot_tpu_torch import bench
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(extra)
+    except BaseException:
+        _log(err.getvalue()[-4000:])
+        raise
+    seconds = time.time() - t0
+    launches = kernels.launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        _log(err.getvalue()[-4000:])
+        raise AssertionError(f"bench {label}: rc {rc}, stdout {lines}")
+    rec = json.loads(lines[0])
+    for ln in err.getvalue().splitlines():
+        if ln.startswith(("[", "kernel library", "  [", "device")):
+            _log(f"  bench {label}: {ln.strip()}")
+    _log(f"  bench {label} ({seconds:.2f} s): {json.dumps(rec)}")
+    if "families_error" in rec:
+        raise AssertionError(f"bench {label}: {rec['families_error']}")
+    bad = [k for k, v in rec.items() if isinstance(v, float)
+           and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"bench {label}: non-finite {bad}")
+    return rec, launches, seconds
+
+
+def bench_phase():
+    """Phase 17: the bench's JSON lines, and its kernel launches held
+    against the ALG2 iterations (and stepA solves) it ran."""
+    recs = {}
+    for label, extra in BENCH_RUNS:
+        rec, launches, _ = run_bench(label, extra)
+        families = "--no-families" not in extra
+        repeats = (BENCH_SHORT_REPEATS if "--repeats" in extra
+                   else BENCH_REPEATS)
+        want = bench_alg2_iterations(families, repeats)
+        if rec["alg2_iterations"] != want:
+            raise AssertionError(f"bench {label}: {rec['alg2_iterations']} "
+                                 f"ALG2 iterations, expected {want}")
+        kernel = "dct_solve" if rec["ops"] == "dct-fused" else \
+            "fused_pointwise"
+        expect = {kernel: want}
+        check_launches(f"bench {label}", launches, expect)
+        _log(f"  bench {label}: ops {rec['ops']}, {kernel} launched "
+             f"{launches[kernel]} times = its ALG2 iterations"
+             + (" (stepA solves)" if kernel == "dct_solve" else "")
+             + (", the WFR family's included" if families else ""))
+        recs[label] = dict(rec, launches=launches)
+    if recs["auto"]["ops"] != "pallas":
+        raise AssertionError(f"bench auto resolved {recs['auto']['ops']}")
+    return recs
+
+
+# --------------------------------------------------------- distribution
+
+# Phase 18.  Full width (320x240, Nt=16) on every leg.  Cuts: the tiled
+# FOTO and WFR (CG stepA, about 234 CG steps an ALG2 iteration, each with
+# its halo exchanges and two all-reduces) run DIST_MAX_IT iterations; the
+# tiled GN's Jacobi CG runs at most DIST_GN_MAXITER steps; the workers'
+# tiled FOTO DIST_WORKER_ITERS iterations.
+DIST_MAX_IT, DIST_GN_MAXITER, DIST_WORKER_ITERS = 5, 100, 5
+# Tiled against whole at float64 on the card: the tests' (and
+# tests/test_parallel.py's) whole-vs-tiled bound.  The GSPMD route with
+# the pallas and dct-fused sets at float32 runs to its stopping rule and
+# is compared per solve, as stepA sets are: IE within 0.5%.
+DIST_ATOL, DIST_IE_RTOL = 1e-8, 5e-3
+DIST_SECONDS = 600.0
+
+
+def _foto_dist_kw(max_it):
+    return dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2,
+                max_it=max_it, admm_alpha=ADMM_ALPHA)
+
+
+def nccl_world_of_one(workdir: Path, rho):
+    """(a) This process as a world of one rank on NCCL, a (1, 1) mesh: the
+    tiled FOTO (cg set) and GN (Jacobi) bitwise the single-device solves
+    with the same method."""
+    import torch.distributed as dist
+    from ofot_tpu_torch.parallel import (foto_sharded, gn_sharded,
+                                         launch, mesh as mesh_mod, multihost)
+    a, b = (torch.as_tensor(f, dtype=torch.float32, device=CARD)
+            for f in rho)
+    Nt, kw = SHAPE[0], _foto_dist_kw(DIST_MAX_IT)
+    multihost.initialize(init_method=launch.rendezvous(workdir),
+                         num_processes=1, process_id=0,
+                         backend="nccl" if CARD == "cuda" else "gloo")
+    try:
+        mesh = mesh_mod.make_mesh({"y": 1, "x": 1}, platform=CARD)
+        t0 = time.time()
+        tiled = foto_sharded.solve_potential_tiled(a, b, Nt, mesh, **kw)
+        t_tiled = time.time() - t0
+        t0 = time.time()
+        whole = foto.solve_potential(a, b, Nt, **kw)
+        t_whole = time.time() - t0
+        same = all(torch.equal(getattr(tiled, k), getattr(whole, k))
+                   for k in ("mu", "q", "phi", "crit"))
+        if not (same and tiled.iteration == whole.iteration
+                and tiled.cg_iterations == whole.cg_iterations):
+            raise AssertionError("NCCL (1, 1) tiled FOTO is not the "
+                                 "single-device cg solve bitwise")
+        gkw = dict(alpha=0.1, lambda_=0.2, maxiter=DIST_GN_MAXITER)
+        t0 = time.time()
+        gt = gn_sharded.solve_fields_tiled(a, b, mesh, **gkw)
+        g_tiled = time.time() - t0
+        t0 = time.time()
+        gw = gn.solve_fields(a, b, precond="jacobi", **gkw)
+        g_whole = time.time() - t0
+        if not (all(torch.equal(getattr(gt, k), getattr(gw, k))
+                    for k in "uvm")
+                and gt.cg.iterations == gw.cg.iterations):
+            raise AssertionError("NCCL (1, 1) tiled GN is not the "
+                                 "single-device Jacobi solve bitwise")
+        _log(f"  (a) NCCL world of 1, mesh (1, 1), {dist.get_backend()}: "
+             f"FOTO cg set {tiled.iteration} iterations "
+             f"({tiled.cg_iterations} CG steps) bitwise, {t_tiled:.2f} s "
+             f"tiled against {t_whole:.2f} s whole; GN Jacobi "
+             f"{gt.cg.iterations} CG steps bitwise, {g_tiled:.2f} s against "
+             f"{g_whole:.2f} s")
+    finally:
+        dist.destroy_process_group()
+
+
+def _ie(f0, f1, phi):
+    """IE of the flow extracted from ``phi`` (warp of f0 against f1)."""
+    from ofot_tpu_torch.solvers import flow_extract
+    from ofot_tpu_torch.utils import warp
+    _, h, w = SHAPE
+    u, v, m = flow_extract.flow_from_potential(
+        torch.as_tensor(phi, device=CARD))
+    a = torch.as_tensor(f0, dtype=u.dtype, device=CARD)
+    rec = np.clip(warp.apply_flow(a, u, v, m).cpu().numpy(), 0, 1)
+    return metrics.IE(w, h, rec, np.asarray(f1, np.float64))
+
+
+def four_rank_world(rho):
+    """(b) Four processes sharing the card on a gloo 2x2 mesh: tiled FOTO,
+    WFR and GN against the whole solves on the card at float64; the GSPMD
+    route with the pallas and dct-fused sets at float32 to their stopping
+    rule, per solve (IE); every rank the same result.  Returns the GSPMD
+    kernels' launches summed over the ranks."""
+    from ofot_tpu_torch.parallel import cases, launch
+    f0, f1 = (np.asarray(f, np.float64) for f in rho)
+    Nt, kw = SHAPE[0], _foto_dist_kw(DIST_MAX_IT)
+    wkw = dict(kw, delta=WFR_DELTA)
+    gkw = dict(alpha=0.1, lambda_=0.2, maxiter=DIST_GN_MAXITER)
+    pkw = _foto_dist_kw(200)
+    tiles = {"y": 2, "x": 2}
+    # the GSPMD sets and the kernel each launches once an iteration on
+    # every rank: pallas's fused pass on the rank's tile, dct-fused's
+    # whole-field solve on the gathered F
+    gspmd_sets = {"pallas": "fused_pointwise", "dct-fused": "dct_solve"}
+    specs = [("foto", tiles, "foto_tiled", dict(f1=f0, f2=f1, Nt=Nt, **kw)),
+             ("wfr", tiles, "wfr_tiled", dict(f1=f0, f2=f1, Nt=Nt, **wkw)),
+             ("gn", tiles, "gn_tiled", dict(f1=f0, f2=f1, **gkw)),
+             *[(ops, tiles, "foto_gspmd",
+                dict(f1=f0.astype(np.float32), f2=f1.astype(np.float32),
+                     Nt=Nt, ops=ops, **pkw)) for ops in gspmd_sets]]
+    t0 = time.time()
+    world = launch.run(cases.run_cases, 4, specs, CARD, threads=0,
+                       seconds=DIST_SECONDS)
+    wall = time.time() - t0
+    started = max(r["started"] for r in world) - t0
+    cases_s = sum(world[0][f"{name}_s"] for name, *_ in specs)
+    _log(f"  (b) 4-rank world {wall:.2f} s: the last rank began its cases "
+         f"{started:.2f} s after the spawn (process start-up and the "
+         f"world's join), rank 0's cases took {cases_s:.2f} s")
+    for name, *_ in specs:
+        if any(r[name] != cases.digest(world[0][name]) for r in world[1:]):
+            raise AssertionError(f"4-rank {name}: the ranks' results differ")
+    got = {name: world[0][name] for name, *_ in specs}
+    a, b = (torch.as_tensor(f, device=CARD) for f in (f0, f1))
+    solves = {
+        "foto": lambda: foto.solve_potential(a, b, Nt, **kw),
+        "wfr": lambda: wfr.solve_potential(a, b, Nt, ops=foto.DEFAULT_OPS,
+                                           **wkw),
+        "gn": lambda: gn.solve_fields(a, b, precond="jacobi", **gkw)}
+    for ops in gspmd_sets:
+        solves[ops] = functools.partial(
+            foto.solve_potential, a.float(), b.float(), Nt,
+            ops=foto.stepA_ops(ops), **pkw)
+    whole, secs = {}, {}
+    for name, fn in solves.items():
+        t0 = time.time()
+        whole[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+    for name in ("foto", "wfr"):
+        g, w_ = got[name], whole[name]
+        gap = max(float(np.abs(g[k] - getattr(w_, k).cpu().numpy()).max())
+                  for k in ("phi", "mu"))
+        if not (gap < DIST_ATOL and int(g["iteration"]) == w_.iteration):
+            raise AssertionError(f"4-rank tiled {name}: gap {gap:.3e}, "
+                                 f"{g['iteration']} against {w_.iteration} "
+                                 "iterations")
+        _log(f"  (b) tiled {name} 2x2, float64, {w_.iteration} iterations "
+             f"({int(g['cg_iterations'])} CG steps; whole "
+             f"{w_.cg_iterations}): max |tiled - whole| {gap:.3e} (tol "
+             f"{DIST_ATOL:g}); {world[0][name + '_s']:.2f} s tiled "
+             f"against {secs[name]:.2f} s whole")
+    g, w_ = got["gn"], whole["gn"]
+    gap = max(float(np.abs(g[k] - getattr(w_, k).cpu().numpy()).max())
+              for k in "uvm")
+    if not gap < DIST_ATOL:
+        raise AssertionError(f"4-rank tiled GN: gap {gap:.3e}")
+    _log(f"  (b) tiled GN 2x2, float64, Jacobi, {int(g['iterations'])} CG "
+         f"steps (whole {w_.cg.iterations}): max |tiled - whole| "
+         f"{gap:.3e} (tol {DIST_ATOL:g}); {world[0]['gn_s']:.2f} s tiled "
+         f"against {secs['gn']:.2f} s whole")
+    launches = {}
+    for ops, kernel in gspmd_sets.items():
+        g, w_ = got[ops], whole[ops]
+        for r in world:
+            check_launches(f"GSPMD {ops} rank", r[f"{ops}_launches"],
+                           {kernel: int(g["iteration"])})
+        ie_t, ie_w = _ie(f0, f1, g["phi"]), _ie(f0, f1, w_.phi)
+        gap = abs(ie_t - ie_w) / ie_w
+        if not (gap <= DIST_IE_RTOL and int(g["iteration"]) < 200
+                and w_.iteration < 200):
+            raise AssertionError(f"GSPMD {ops}: IE {ie_t} against {ie_w}, "
+                                 f"{g['iteration']} / {w_.iteration} "
+                                 "iterations")
+        _log(f"  (b) GSPMD route, {ops} set, float32, 2x2: "
+             f"{int(g['iteration'])} iterations against {w_.iteration} "
+             f"whole; IE {ie_t:.6f} against {ie_w:.6f} (gap {gap:.2e}, tol "
+             f"{DIST_IE_RTOL:g}); {world[0][ops + '_s']:.2f} s against "
+             f"{secs[ops]:.2f} s whole; {kernel} launched once an "
+             "iteration on each rank")
+        launches[kernel] = sum(r[f"{ops}_launches"][kernel] for r in world)
+    return launches
+
+
+def data_parallel_runs(workdir: Path, seqs):
+    """(c) ``run --batch --data-parallel N`` (N = 2, then 4) on phase 15's
+    middlebury-1 data against the one-process map batch: every flow within
+    AEPE 1e-4."""
+    from ofot_tpu_torch.cli import pipeline
+    data, batched = workdir / "sweep-data", workdir / "sweep-batch"
+    keys = [k for k in seqs if k.split("/")[0] == "middlebury-1"]
+    for n in (2, 4):
+        results = workdir / f"sweep-dp{n}"
+        argv = ["run", "--batch", "--data-parallel", str(n), "--data-root",
+                str(data), "--results", str(results), "--datasets",
+                "middlebury-1", "--algos", ",".join(SWEEP_ALGOS),
+                f"--platform={CARD}"]
+        out = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = pipeline.main(argv)
+        except BaseException:
+            _log(out.getvalue()[-4000:])
+            raise
+        seconds = time.time() - t0
+        if rc != 0:
+            _log(out.getvalue()[-4000:])
+            raise AssertionError(f"--data-parallel {n}: rc {rc}")
+        man = json.loads((results / "manifest.json").read_text())
+        worst = 0.0
+        for key in keys:
+            for algo in SWEEP_ALGOS:
+                if man[key][algo]["status"] != "ok":
+                    raise AssertionError(f"--data-parallel {n} {key} "
+                                         f"{algo}: {man[key][algo]}")
+                _, _, u1, v1 = flo.read_flo(str(batched / key /
+                                                f"{algo.lower()}.flo"))
+                _, _, u2, v2 = flo.read_flo(str(results / key /
+                                                f"{algo.lower()}.flo"))
+                worst = max(worst, float(np.hypot(u1 - u2, v1 - v2).mean()))
+        if not worst < SWEEP_BATCH_AEPE:
+            raise AssertionError(f"--data-parallel {n}: flows {worst} px "
+                                 "from the one-process batch")
+        _log(f"  (c) run --batch --data-parallel {n} (middlebury-1, "
+             f"{len(keys)} sequences x {len(SWEEP_ALGOS)} algos, one card, "
+             f"gloo): {seconds:.2f} s; worst AEPE against the one-process "
+             f"map batch {worst:.3g} (tol {SWEEP_BATCH_AEPE:g})")
+
+
+def two_workers(workdir: Path):
+    """(d) Two ``multihost_worker`` processes with ``--platform cuda``: a
+    world of 2 on the card (gloo), the all-reduce, the tiled FOTO at full
+    width with the same fingerprint on both, the distributed checkpoint
+    round trip, and the sweep partition (GN on middlebury-1) merged."""
+    from ofot_tpu_torch.cli import pipeline
+    from ofot_tpu_torch.parallel import launch
+    root = workdir / "workers"
+    root.mkdir()
+    outs = [root / f"host{i}.json" for i in range(2)]
+    _, h, w = SHAPE
+    cmd = [sys.executable, "-m", "ofot_tpu_torch.parallel.multihost_worker",
+           "--coordinator", launch.rendezvous(root), "--num-processes", "2",
+           "--platform", CARD, "--foto-shape", f"{h}x{w}",
+           "--foto-nt", str(SHAPE[0]), "--foto-iters",
+           str(DIST_WORKER_ITERS), "--checkpoint-dir", str(root / "ckpt"),
+           "--data-root", str(workdir / "sweep-data"),
+           "--results", str(root / "results"), "--datasets", "middlebury-1",
+           "--algos", "GN"]
+    t0 = time.time()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i),
+                                     "--out", str(outs[i])],
+                              cwd=Path(__file__).resolve().parent,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_SECONDS)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.time() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            _log(log[-4000:])
+            raise AssertionError(f"multihost worker: rc {p.returncode}")
+    res = [json.loads(o.read_text()) for o in outs]
+    for r in res:
+        ok = (r["process_count"] == 2 and r["psum"] == r["psum_expected"]
+              and r["device"].startswith(CARD) and r["sweep_rc"] == 0
+              and r["ckpt_phi_l1"] == r["foto_phi_l1"]
+              and r["ckpt_iteration"] == r["foto_iterations"])
+        if not ok:
+            raise AssertionError(f"multihost worker record {r}")
+    keys = ("foto_crit", "foto_phi_l1", "foto_iterations")
+    if any(res[0][k] != res[1][k] for k in keys) or \
+            not res[0]["foto_iterations"] > 0 or \
+            not np.isfinite(res[0]["foto_crit"]):
+        raise AssertionError(f"multihost workers differ: {res}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline.main(["merge-manifests", "--results", str(root / "results")])
+    merged = json.loads((root / "results" / "manifest.json").read_text())
+    if len(merged) != 3 or any(v["GN"]["status"] != "ok"
+                               for v in merged.values()):
+        raise AssertionError(f"multihost sweep manifest {merged}")
+    _log(f"  (d) 2 multihost workers, --platform {CARD} ({res[0]['backend']}, "
+         f"{res[0]['device']}): {seconds:.2f} s; tiled FOTO {h}x{w} "
+         f"{res[0]['foto_iterations']} iterations, crit "
+         f"{res[0]['foto_crit']:.6g} on both; checkpoint round trip exact; "
+         "sweep partition merged (3 sequences); each worker's legs (s): "
+         + "; ".join(json.dumps(r["leg_s"]) for r in res))
+
+
+def distribution_phase(workdir: Path, rho, seqs):
+    """Phase 18's four legs, each with its wall; returns the GSPMD
+    route's kernel launches over its 4 ranks."""
+    out = {}
+    for label, fn, args in (("(a)", nccl_world_of_one, (workdir, rho)),
+                            ("(b)", four_rank_world, (rho,)),
+                            ("(c)", data_parallel_runs, (workdir, seqs)),
+                            ("(d)", two_workers, (workdir,))):
+        t0 = time.time()
+        out[label] = fn(*args)
+        _log(f"  {label} wall {time.time() - t0:.2f} s")
+    return out["(b)"]
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -2275,6 +2704,12 @@ def main() -> int:
             _timed(profile_lockstep)
             _timed(run_lockstep_pipeline, workdir, seqs)
 
+        with Phase("17 bench"):
+            bench_recs = bench_phase()
+
+        with Phase("18 distribution"):
+            gspmd_launches = distribution_phase(workdir, rho, seqs)
+
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path
     every_run = [solve, *paths.values()]
@@ -2296,11 +2731,19 @@ def main() -> int:
                "dct_solve_batched": lock_dct,
                "cg_operator_batched": lock_cg}[e["name"]]
         return dict(e, batch=LOCKSTEP_B, singles_ms=rec["singles_ms"],
-                    singles_device_ms=rec["singles_device_ms"])
+                    singles_device_ms=rec["singles_device_ms"],
+                    **{k: rec[k] for k in ("cold_ms", "cold_device_ms")
+                       if k in rec})
 
+    # this slice's paths: the bench (phase 17) and the GSPMD route
+    # (phase 18, summed over its 4 ranks): pallas's tile-local fused pass
+    # and dct-fused's solve of the gathered F
+    bench_launches = {k: r["launches"] for k, r in bench_recs.items()}
     record = {"kernels": [
-        entry("fused_pointwise", "fused_pointwise.cu", 224,
-              solve["launches"]["fused_pointwise"], worst, t),
+        dict(entry("fused_pointwise", "fused_pointwise.cu", 224,
+                   solve["launches"]["fused_pointwise"], worst, t),
+             bench_launches=bench_launches["auto"]["fused_pointwise"],
+             gspmd_launches=gspmd_launches["fused_pointwise"]),
         # the library call is the port's whole cuBLAS stepA, so the whole
         # dct-fused stepA (t products + kernel) stands beside it
         dict(entry("dct_solve", "dct_solve.cu", 355,
@@ -2309,7 +2752,9 @@ def main() -> int:
              stepA_ms=dct_rec["stepA_ms"],
              stepA_device_ms=dct_rec["stepA_device_ms"],
              f32_bound_ms=dct_rec["f32_bound_ms"],
-             err_vs_float64=dct_rec["f64"]),
+             err_vs_float64=dct_rec["f64"],
+             bench_launches=bench_launches["dct-fused"]["dct_solve"],
+             gspmd_launches=gspmd_launches["dct_solve"]),
         dict(entry("project_paraboloid", "projection.cu", 130,
                    sum(r["launches"]["project_paraboloid"]
                        for r in every_run), proj_err, proj[3]),
@@ -2324,10 +2769,11 @@ def main() -> int:
         # the lockstep forms (phase 16, B = 8 pairs a launch): launches
         # from the lockstep FOTO run at the pipeline's parameters and from
         # the lockstep dct-fused and cg-pallas runs (B = 4)
-        lockstep_entry(entry("fused_pointwise_batched", "fused_pointwise.cu",
-                             224, lock_solves["foto"]["launches"][
-                                 "fused_pointwise"], lock_worst,
-                             lock_fp[3])),
+        dict(lockstep_entry(entry(
+            "fused_pointwise_batched", "fused_pointwise.cu", 224,
+            lock_solves["foto"]["launches"]["fused_pointwise"], lock_worst,
+            lock_fp[3])),
+            bench_launches=bench_launches["batch 8"]["fused_pointwise"]),
         dict(lockstep_entry(entry(
             "dct_solve_batched", "dct_solve.cu", 355,
             lock_sets["dct-fused"]["launches"]["dct_solve"],

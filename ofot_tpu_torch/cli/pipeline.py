@@ -322,8 +322,14 @@ def _escalate_sinkhorn_f64(argv: list) -> bool:
     known-biased flows.  The card runs Sinkhorn at f64, and torch's dtype
     is per call, so the re-solve stays on the card (the JAX pipeline
     leaves for a CPU subprocess: the TPU has no f64 and x64 is a
-    process-wide switch there)."""
-    ok = _rerun_cli(argv, "--precision=f64")
+    process-wide switch there).  Any exception of the re-solve fails the
+    escalation, not the sweep, as the JAX subprocess's rc != 0 does."""
+    try:
+        ok = _rerun_cli(argv, "--precision=f64")
+    except Exception as e:      # the sweep goes on; the row records it
+        print(f"note: f64 re-solve raised {type(e).__name__}: {e}",
+              file=sys.stderr)
+        ok = False
     if not ok:
         print("note: f64 escalation failed", file=sys.stderr)
     return ok
@@ -621,20 +627,16 @@ def cmd_run_batch(args) -> int:
     ``sweep.solve_batch_full`` call — in ``map`` mode the pairs one after
     another on the device, bitwise the per-sequence solves; in ``vmap``
     mode one lockstep batch — with the frames, warps and metrics of the
-    whole group handled together."""
-    import time as _time
-
+    whole group handled together.  ``--data-parallel N`` splits each
+    group's pairs over N ranks (``sweep.DataParallel``)."""
     import numpy as np
     import torch
 
-    from ofot_tpu_torch.cli import data_diff
     from ofot_tpu_torch.parallel import sweep as sweep_mod
-    from ofot_tpu_torch.parallel.multihost import partition_keys
-    from ofot_tpu_torch.utils import image as img, flo as flo_mod, metrics, warp
 
-    if args.data_parallel > 1:
-        print(f"ERROR: --data-parallel={args.data_parallel}: "
-              f"{sweep_mod.MESH_NOT_PORTED}", file=sys.stderr)
+    if args.data_parallel < 1:
+        print(f"ERROR: --data-parallel={args.data_parallel} must be >= 1",
+              file=sys.stderr)
         return 2
     foto_params, gn_params, wfr_params, sinkhorn_params, passthrough = \
         _batched_params(args.extra_args)
@@ -657,6 +659,34 @@ def cmd_run_batch(args) -> int:
             print(f"ERROR: {e}; use --precision=f32, another "
                   "--stepA-solver, or --platform=cpu", file=sys.stderr)
             return 2
+
+    solve_kw = dict(foto_params=foto_params, gn_params=gn_params,
+                    wfr_params=wfr_params, sinkhorn_params=sinkhorn_params,
+                    batch_mode=args.batch_mode, device=device)
+    if args.data_parallel == 1:
+        return _run_batches(args, algos, device, dtype, precision, solve_kw)
+    # the batch axis over a `data` mesh of N ranks: this process is rank 0
+    # and starts the others, once per run; a rank that fails fails the run
+    with sweep_mod.DataParallel(args.data_parallel, device.type) as dp:
+        return _run_batches(args, algos, device, dtype, precision, solve_kw,
+                            dp)
+
+
+def _run_batches(args, algos, device, dtype, precision, solve_kw,
+                 dp=None) -> int:
+    """``cmd_run_batch``'s sweep: each dataset's same-shape groups solved
+    with ``solve_kw`` by ``solve_batch_full``, or over the ranks of ``dp``
+    (a ``sweep.DataParallel``; each group padded to a multiple of its
+    ranks, the duplicates dropped)."""
+    import time as _time
+
+    import numpy as np
+    import torch
+
+    from ofot_tpu_torch.cli import data_diff
+    from ofot_tpu_torch.parallel import sweep as sweep_mod
+    from ofot_tpu_torch.parallel.multihost import partition_keys
+    from ofot_tpu_torch.utils import image as img, flo as flo_mod, metrics, warp
 
     data = Path(args.data_root)
     results = Path(args.results)
@@ -709,11 +739,13 @@ def cmd_run_batch(args) -> int:
                 print(f"== batch {ds_name} [{algo}] shape={shape} "
                       f"n={n} ==", flush=True)
                 t0 = _time.time()
-                u_d, v_d, m_d, diag = sweep_mod.solve_batch_full(
-                    algo, f1s, f2s, None,
-                    foto_params=foto_params, gn_params=gn_params,
-                    wfr_params=wfr_params, sinkhorn_params=sinkhorn_params,
-                    batch_mode=args.batch_mode, device=device)
+                if dp is None:
+                    u_d, v_d, m_d, diag = sweep_mod.solve_batch_full(
+                        algo, f1s, f2s, None, **solve_kw)
+                else:
+                    u_d, v_d, m_d, diag = dp.solve(
+                        algo, sweep_mod._pad_batch(f1s, dp.n)[0],
+                        sweep_mod._pad_batch(f2s, dp.n)[0], **solve_kw)
                 # the solve ends with the flows on the host, as the
                 # per-sequence CLI's time does
                 u, v = u_d.cpu().numpy(), v_d.cpu().numpy()
@@ -774,7 +806,7 @@ def cmd_run_batch(args) -> int:
                         # _maybe_escalate_sinkhorn).  Skipped when the
                         # whole batch already ran f64 — a re-solve would
                         # reproduce the same result
-                        sp = sinkhorn_params
+                        sp = solve_kw["sinkhorn_params"]
                         esc = [f"--platform={device.type}",
                                f"--sinkhorn-epsilon={sp['epsilon']}",
                                f"--sinkhorn-tol={sp['tol']}",
@@ -864,8 +896,10 @@ def main(argv=None) -> int:
                        help="solve all same-shape sequences of a dataset "
                             "as one batch instead of per-sequence")
         r.add_argument("--data-parallel", type=int, default=1,
-                       help="shard the batch axis over this many devices "
-                            "(batch mode; only 1 is ported)")
+                       help="split the batch axis over this many ranks "
+                            "(batch mode): this process starts the other "
+                            "N-1, each on cuda:{rank %% cards}, or the "
+                            "CPU with --platform=cpu")
         r.add_argument("--batch-mode", choices=["map", "vmap"],
                        default="map",
                        help="batch execution: 'map' solves the pairs one "

@@ -1,4 +1,5 @@
-"""Sweeps over many frame pairs (counterpart of ofot_tpu.parallel): the
-map-mode batch solve (``sweep``) and the host partition of a sweep
-(``multihost``).  The mesh, sharding and halo-exchange modules of the JAX
-package are not ported yet."""
+"""The distribution layer (counterpart of ofot_tpu.parallel): meshes of
+ranks (``mesh``), halo-exchange stencils (``halo``), tiled solves
+(``foto_sharded``, ``wfr_sharded``, ``gn_sharded``, ``gspmd``), batch
+sweeps over a ``data`` axis (``sweep``), local worlds (``launch``) and
+multi-process scaffolding (``multihost``, ``multihost_worker``)."""

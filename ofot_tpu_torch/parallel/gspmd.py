@@ -1,0 +1,140 @@
+"""Spatially tiled solves for every ops set: the counterpart of the JAX
+package's GSPMD path (``ofot_tpu.parallel.gspmd``).
+
+JAX places the frames with a (y, x)-tiled sharding and jits the ordinary
+solve, and XLA's SPMD partitioner turns the stencils into halo exchanges
+and the reductions into all-reduces.  torch has no SPMD partitioner, so
+here every rank of a (y, x) mesh runs the ordinary ALG2 loop on its tile
+with the ops set given to the solve made tiled (:func:`sharded_ops`):
+
+  * the stencils, the pointwise passes and the reductions run tiled
+    (``parallel/halo.py``), so every rank reaches the same stop decision;
+  * the ``cg`` set keeps its CG stepA, on halo stencils with all-reduced
+    dots (the tiled path of ``parallel/foto_sharded.py``);
+  * the spectral stepA sets (``dct``, ``dct-refined``, ``dct-fused``,
+    ``pallas``) solve a *global* transform: each rank all-gathers F
+    ((16, 240, 320) float32 is 4.9 MB), solves it whole with the set's own
+    solve (kernel #2 for ``dct-fused``) and keeps its own tile (the
+    "gather route");
+  * ``pallas``'s fused stepB + stepC + criterion pass (kernel #1) runs
+    tile-local on each rank's tile, with its ``num``/``den`` sums
+    all-reduced;
+  * ``cg-pallas`` is refused: kernel #4 works on a whole field, and a tile
+    form with halos is later work.
+
+GN's spectral preconditioner is a global transform too and takes the
+gather route; its Jacobi one is tile-local.  On one card, a world of more
+than one rank shares ``cuda:0`` over gloo, staging through host memory
+(NCCL refuses two ranks on one device).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ofot_tpu_torch.parallel import gn_sharded
+from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.parallel.mesh import Mesh, shard_pair
+from ofot_tpu_torch.solvers import foto, gn, wfr
+
+
+def gather_state(state: foto.FotoState, mesh: Mesh) -> foto.FotoState:
+    """A tiled solve's state with its fields gathered whole (every rank
+    gets all of it, as JAX's global arrays read); the scalars are the
+    same on every rank already."""
+    return state._replace(mu=mesh.gather(state.mu), q=mesh.gather(state.q),
+                          phi=mesh.gather(state.phi))
+
+
+class _GatheredStepA:
+    """Mixin: a spectral stepA solved whole on the all-gathered F, this
+    rank keeping its tile."""
+
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+        phi, n = super().stepA_solve(self.mesh.gather(F), r, reg_epsilon,
+                                     cg_rtol, cg_maxiter)
+        return self.mesh.tile(phi), n
+
+
+@functools.cache
+def _gathered_class(cls):
+    attrs = {}
+    fused = getattr(cls, "fused_pointwise", None)
+    if fused is not None:
+        def fused_pointwise(self, grad_phi, mu, r, alpha=None, q_prev=None):
+            """The fused pass on this rank's tile, its criterion sums
+            all-reduced over the plane."""
+            q, mu, num, den = fused(grad_phi, mu, r, alpha, q_prev)
+            return (q, mu, self.mesh.all_reduce(num),
+                    self.mesh.all_reduce(den))
+        attrs["fused_pointwise"] = fused_pointwise
+    return type(f"Gathered{cls.__name__}", (_GatheredStepA, ShardedOps, cls),
+                attrs)
+
+
+def sharded_ops(ops, mesh: Mesh):
+    """The tiled form of the (single-pair) ops set ``ops`` on ``mesh``
+    (its own state carried over)."""
+    if isinstance(ops, foto.PallasCGOps):
+        raise ValueError(
+            "the cg-pallas set cannot run tiled: kernel #4 (cg_operator) "
+            "works on a whole field, and its tile form with halos is not "
+            "written yet; use the cg set")
+    if isinstance(ops, foto._Lockstep) or isinstance(ops, ShardedOps):
+        raise ValueError(f"{type(ops).__name__} is not a single-pair ops "
+                         "set")
+    if type(ops) is foto._DefaultOps:
+        return ShardedOps(mesh)
+    if not isinstance(ops, foto.DCTOps):
+        raise ValueError(f"no tiled form of {type(ops).__name__}")
+    tiled = object.__new__(_gathered_class(type(ops)))
+    tiled.__dict__.update(vars(ops))
+    tiled._plans = {}
+    tiled.mesh = mesh
+    return tiled
+
+
+def _run_tiled(loop, rho0, rhoT, Nt: int, mesh: Mesh, ops, **kw):
+    """``loop`` on this rank's tiles of the full frames with the tiled
+    form of ``ops``, the state gathered whole at the end."""
+    tile0, tileT = shard_pair(rho0, rhoT, mesh)
+    state = loop(tile0, tileT, Nt, ops=sharded_ops(ops, mesh), **kw)
+    return gather_state(state, mesh)
+
+
+def solve_foto_sharded(rho0, rhoT, Nt: int, mesh: Mesh, *,
+                       ops=foto.DEFAULT_OPS, **kw) -> foto.FotoState:
+    """FOTO ALG2 with the space-time fields tiled over the mesh's (y, x)
+    axes, for any single-pair ops set (default: the ``cg`` set, as
+    ``foto.solve_potential``'s).  Collective, on the full frames; returns
+    the whole state on every rank."""
+    return _run_tiled(foto.alg2_loop, rho0, rhoT, Nt, mesh, ops, **kw)
+
+
+def solve_wfr_sharded(rho0, rhoT, Nt: int, mesh: Mesh, *, ops=None, **kw):
+    """Unbalanced (WFR) ALG2 with (y, x)-tiled fields; ``ops`` defaults to
+    a fresh ``dct`` set, as ``wfr.solve_potential``'s (the gather
+    route)."""
+    ops = foto.stepA_ops("dct") if ops is None else ops
+    return _run_tiled(wfr.alg2_loop, rho0, rhoT, Nt, mesh, ops, **kw)
+
+
+def solve_gn_sharded(f1, f2, mesh: Mesh, alpha=0.1, lambda_=0.2,
+                     rtol=1e-10, maxiter=5000, precond="spectral"):
+    """GN solve with (y, x)-tiled fields, as ``gn.solve_fields``: the
+    spectral preconditioner (the default) applied whole to the
+    all-gathered residual, or the tile-local Jacobi one.  Collective, on
+    the full frames; returns the whole fields on every rank."""
+    M = None
+    if precond == "spectral":
+        M_whole = gn.make_spectral_preconditioner(
+            torch.as_tensor(f2).to(mesh.device), alpha, lambda_)
+
+        def M(rhs):
+            return mesh.tile(M_whole(mesh.gather(rhs)))
+    elif precond != "jacobi":
+        raise ValueError(f"unknown precond {precond!r} (spectral or jacobi)")
+    return gn_sharded.solve_fields_tiled(f1, f2, mesh, alpha, lambda_, rtol,
+                                         maxiter, M=M)

@@ -18,8 +18,16 @@ loops that read their stopping rule once per iteration, so:
     ``solve_foto_batch``, ``solve_gn_batch`` and ``sweep_foto`` are
     lockstep, as JAX's are.
 
-The mesh needs the distribution layer and raises ``NotImplementedError``
-until it is ported.
+With a mesh (``parallel/mesh.py``), the batch axis is block-split over the
+``data`` axis: every rank of the mesh calls the function with the whole
+batch (padded to a multiple of the ``data`` size with ``_pad_batch``),
+solves its own contiguous block on its own device, and every rank gets the
+gathered results, as JAX's ``shard_map`` over ``data`` returns them.
+Ranks on the same ``data`` index solve the same block.  ``DataParallel``
+runs such a mesh from one process: it starts the other ranks, which serve
+its batches (``run --batch --data-parallel N``).  On one card, a world of
+more than one rank shares ``cuda:0`` over gloo, staging through host
+memory (NCCL refuses two ranks on one device).
 
 Middlebury sequences come in a handful of distinct resolutions; padding a
 pair would change the PDE domain, so heterogeneous inputs are *grouped by
@@ -28,15 +36,18 @@ shape* (``group_by_shape``) and each group is solved as one batch.
 
 from __future__ import annotations
 
+import tempfile
 from collections import defaultdict
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ofot_tpu_torch.parallel import launch, multihost
+from ofot_tpu_torch.parallel.mesh import make_mesh, rank_device
 from ofot_tpu_torch.solvers import flow_extract, foto, gn, lockstep, wfr
-
-MESH_NOT_PORTED = ("a data mesh is not ported yet: ROADMAP Queue 1 item "
-                   "10 (distribution layer)")
+from ofot_tpu_torch.solvers.cg import CGResult
 
 
 def group_by_shape(pairs):
@@ -66,12 +77,39 @@ def torch_device(name) -> torch.device:
     return device
 
 
-def _check_layout(batch_mode: str, mesh) -> None:
+def _check_mode(batch_mode: str) -> None:
     if batch_mode not in ("map", "vmap"):
         raise ValueError(f"unknown batch_mode {batch_mode!r} "
                          "(expected 'vmap' or 'map')")
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+
+
+def _block(mesh, *stacks):
+    """This rank's contiguous block of each (B, ...) stack: the batch is
+    split over the mesh's ``data`` axis (B must divide)."""
+    dp = mesh.size("data")
+    b = len(stacks[0])
+    if b % dp:
+        raise ValueError(f"batch of {b} pairs not divisible by data={dp} "
+                         "(pad with _pad_batch first)")
+    k, i = b // dp, mesh.index("data")
+    return [x[i * k:(i + 1) * k] for x in stacks]
+
+
+def _gather_blocks(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The (B, ...) stack whose blocks the ranks of this rank's ``data``
+    line hold."""
+    if "data" not in mesh.names:
+        return t
+    return torch.cat(mesh.all_gather(t, mesh.group("data")))
+
+
+def _gather_diag(mesh, diag: dict) -> dict:
+    """Per-pair numpy diagnostics gathered over the ``data`` line."""
+    if "data" not in mesh.names:
+        return diag
+    parts = [None] * mesh.size("data")
+    dist.all_gather_object(parts, diag, group=mesh.group("data"))
+    return {k: np.concatenate([p[k] for p in parts]) for k in diag}
 
 
 def _map_pairs(one, f1s, f2s):
@@ -176,8 +214,19 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
     ``crit``; WFR ``iterations``, ``crit`` (luminosity slot = growth
     composed with the dilution correction); sinkhorn ``iterations``,
     ``marginal_error`` (m = -div(u, v), 'D' boundary); GN
-    ``inner_iterations``, ``converged``."""
-    _check_layout(batch_mode, mesh)
+    ``inner_iterations``, ``converged``.
+
+    With a ``mesh``: collective, every rank with the whole (padded) batch;
+    each solves its ``data`` block on the mesh's device (``device`` is not
+    read) and returns the whole batch's results."""
+    _check_mode(batch_mode)
+    if mesh is not None:
+        b1, b2 = _block(mesh, np.asarray(f1s), np.asarray(f2s))
+        u, v, m, diag = solve_batch_full(
+            algo, b1, b2, None, foto_params, gn_params, wfr_params,
+            sinkhorn_params, batch_mode, device=mesh.device)
+        return (*(_gather_blocks(mesh, t) for t in (u, v, m)),
+                _gather_diag(mesh, diag))
     if algo not in ("foto", "WFR", "sinkhorn", "GN"):
         # every algo must dispatch explicitly — an unknown name silently
         # falling through to GN would write wrong flows into <algo>.flo
@@ -259,8 +308,13 @@ def solve_foto_batch(rho0s, rhoTs, Nt: int, mesh=None, *, device="cuda",
                      **kw):
     """Batched FOTO: rho0s/rhoTs are (B, Ny, Nx).  Returns a FotoState
     with a leading batch axis and (B,) counters, the pairs solved in
-    lockstep (``foto.solve_potential_batched``)."""
-    _check_layout("vmap", mesh)
+    lockstep (``foto.solve_potential_batched``).  With a mesh, each rank
+    solves its ``data`` block in lockstep on the mesh's device and every
+    rank gets the whole batch's state."""
+    if mesh is not None:
+        b0, bT = _block(mesh, torch.as_tensor(rho0s), torch.as_tensor(rhoTs))
+        st = solve_foto_batch(b0, bT, Nt, device=mesh.device, **kw)
+        return foto.FotoState(*(_gather_blocks(mesh, t) for t in st))
     dev = torch_device(device)
     return foto.solve_potential_batched(
         torch.as_tensor(rho0s, device=dev),
@@ -270,8 +324,15 @@ def solve_foto_batch(rho0s, rhoTs, Nt: int, mesh=None, *, device="cuda",
 def solve_gn_batch(f1s, f2s, mesh=None, alpha=0.1, lambda_=0.2, *,
                    device="cuda", **kw):
     """Batched GN: (B, Ny, Nx) frame stacks -> batched GNResult, the pairs
-    solved in lockstep."""
-    _check_layout("vmap", mesh)
+    solved in lockstep (with a mesh, by ``data`` block, as
+    ``solve_foto_batch``)."""
+    if mesh is not None:
+        b1, b2 = _block(mesh, torch.as_tensor(f1s), torch.as_tensor(f2s))
+        res = solve_gn_batch(b1, b2, None, alpha, lambda_,
+                             device=mesh.device, **kw)
+        u, v, m = (_gather_blocks(mesh, t) for t in res[:3])
+        return gn.GNResult(u=u, v=v, m=m, cg=CGResult(
+            *(_gather_blocks(mesh, t) for t in res.cg)))
     dev = torch_device(device)
     return gn.solve_fields(torch.as_tensor(f1s, device=dev),
                            torch.as_tensor(f2s, device=dev), alpha, lambda_,
@@ -280,13 +341,109 @@ def solve_gn_batch(f1s, f2s, mesh=None, alpha=0.1, lambda_=0.2, *,
 
 def sweep_foto(pairs, Nt: int, mesh=None, *, device="cuda", **kw):
     """Full heterogeneous sweep: group by shape, batch-solve each group,
-    return {key: FotoState-slice} in the input order of each group."""
+    return {key: FotoState-slice} in the input order of each group.  With
+    a mesh, each group is padded to a multiple of the ``data`` size (the
+    duplicates dropped on the way out)."""
     results = {}
+    dp = mesh.size("data") if mesh is not None else 1
     for shape, group in group_by_shape(pairs).items():
         keys = [k for k, _, _ in group]
-        r0 = np.stack([np.asarray(f1) for _, f1, _ in group])
-        rT = np.stack([np.asarray(f2) for _, _, f2 in group])
+        r0, n = _pad_batch(np.stack([np.asarray(f1) for _, f1, _ in group]),
+                           dp)
+        rT, _ = _pad_batch(np.stack([np.asarray(f2) for _, _, f2 in group]),
+                           dp)
         states = solve_foto_batch(r0, rT, Nt, mesh, device=device, **kw)
-        for i, key in enumerate(keys):
+        for i, key in enumerate(keys[:n]):
             results[key] = lockstep.pair(states, i)
     return results
+
+
+# the longest a rank of a DataParallel world waits for another: rank 0 does
+# a group's warps and writes (and any Sinkhorn escalation) between batches
+DATA_PARALLEL_TIMEOUT = timedelta(minutes=30)
+
+
+def _serve(platform: str) -> None:
+    """Ranks 1.. of a ``DataParallel`` world: solve the blocks of every
+    batch rank 0 broadcasts, until it broadcasts None."""
+    mesh = make_mesh({"data": dist.get_world_size()}, platform=platform,
+                     timeout=DATA_PARALLEL_TIMEOUT)
+    while True:
+        req = [None]
+        dist.broadcast_object_list(req, src=0)
+        if req[0] is None:
+            return
+        algo, f1s, f2s, kw = req[0]
+        solve_batch_full(algo, f1s, f2s, mesh, **kw)
+
+
+class DataParallel:
+    """A ``data`` mesh of ``n`` ranks run from this process, rank 0: the
+    other ``n - 1`` ranks are started here and serve :meth:`solve`'s
+    batches; :meth:`close` (or leaving the ``with`` block) stops and joins
+    them.  ``platform``: each rank's device, ``cuda:{rank % cards}`` or
+    the CPU.  A rank that fails or outlives the timeouts fails the run:
+    the next collective, or :meth:`close`, raises."""
+
+    def __init__(self, n: int, platform: str = "cuda"):
+        rank_device(platform, 0)        # no card: refuse before starting
+        if dist.is_initialized():
+            raise RuntimeError("this process is in a process group "
+                               "already")
+        self.n = n
+        self._tmp = tempfile.TemporaryDirectory()
+        init = launch.rendezvous(self._tmp.name)
+        # one card holds every rank here: NCCL refuses two ranks on one
+        # device, so gloo unless each rank has a card of its own
+        backend = multihost.default_backend(n)
+        threads = launch.cpu_threads(n) if platform == "cpu" else 0
+        self._threads = torch.get_num_threads()
+        self.procs = launch.start(_serve, n, init, platform, backend=backend,
+                                  threads=threads,
+                                  timeout=DATA_PARALLEL_TIMEOUT)
+        try:
+            if threads:
+                torch.set_num_threads(threads)
+            multihost.initialize(init_method=init, num_processes=n,
+                                 process_id=0, backend=backend,
+                                 timeout=DATA_PARALLEL_TIMEOUT)
+            self.mesh = make_mesh({"data": n}, platform=platform,
+                                  timeout=DATA_PARALLEL_TIMEOUT)
+        except BaseException:
+            self._abort()
+            raise
+
+    def solve(self, algo, f1s, f2s, **kw):
+        """``solve_batch_full(algo, f1s, f2s, mesh, **kw)`` over the world:
+        (B, Ny, Nx) stacks, B a multiple of ``n``."""
+        f1s, f2s = np.asarray(f1s), np.asarray(f2s)
+        dist.broadcast_object_list([(algo, f1s, f2s, kw)], src=0)
+        return solve_batch_full(algo, f1s, f2s, self.mesh, **kw)
+
+    def _abort(self) -> None:
+        """Kill the ranks still running and leave the world."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.set_num_threads(self._threads)
+        self._tmp.cleanup()
+
+    def close(self) -> None:
+        """Stop the serving ranks and join them (``WorldError`` if one
+        failed)."""
+        try:
+            dist.broadcast_object_list([None], src=0)
+            launch.join(self.procs, 60.0)
+        finally:
+            self._abort()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.close()
+        else:
+            self._abort()

@@ -41,8 +41,13 @@ def apply_flow(f1: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     w3 = di * dj
     w4 = (1.0 - dj) * di
 
-    ti = torch.trunc(torch.clamp(src_i, 0.0, h - 1)).long()
-    tj = torch.trunc(torch.clamp(src_j, 0.0, w - 1)).long()
+    # a NaN position gathers pixel 0 (its weights are NaN, so the result is
+    # NaN whatever it gathers, as in JAX, whose gather clamps the index);
+    # the clamp brings +-inf into range.  .long() of a NaN would be -2^63
+    ti = torch.trunc(torch.clamp(torch.nan_to_num(src_i, nan=0.0),
+                                 0.0, h - 1)).long()
+    tj = torch.trunc(torch.clamp(torch.nan_to_num(src_j, nan=0.0),
+                                 0.0, w - 1)).long()
     tip = torch.clamp(ti + 1, max=h - 1)
     tjp = torch.clamp(tj + 1, max=w - 1)
 

@@ -66,6 +66,15 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.cli.print_operators, ofot_tpu_torch.compat\n"
         "import ofot_tpu_torch.parallel.sweep\n"
         "import ofot_tpu_torch.parallel.multihost\n"
+        "import ofot_tpu_torch.parallel.mesh, ofot_tpu_torch.parallel.halo\n"
+        "import ofot_tpu_torch.parallel.foto_sharded\n"
+        "import ofot_tpu_torch.parallel.wfr_sharded\n"
+        "import ofot_tpu_torch.parallel.gn_sharded\n"
+        "import ofot_tpu_torch.parallel.gspmd\n"
+        "import ofot_tpu_torch.parallel.launch\n"
+        "import ofot_tpu_torch.parallel.cases\n"
+        "import ofot_tpu_torch.parallel.multihost_worker\n"
+        "import ofot_tpu_torch.bench\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"

@@ -24,7 +24,8 @@ Sinkhorn solves (both stabilizers) and the device color wheel.  The
 sweep's map mode is held bitwise against single-pair solves on the card,
 and a tiny pipeline run must write every artifact, with one fused-kernel
 launch per FOTO and WFR ALG2 iteration; a Sinkhorn solve of the sweep
-that misses its tolerance is re-solved at float64 on the card.
+that misses its tolerance is re-solved at float64 on the card.  An
+all-NaN flow warps to NaN pixels on the card, with no device-side assert.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
 4-byte copies otherwise).
@@ -541,3 +542,19 @@ def test_lockstep_solve_batch_full_on_card(cuda_device):
     assert np.abs(g[3]["inner_iterations"]
                   - gm[3]["inner_iterations"]).max() <= 3
     torch.testing.assert_close(g[0], gm[0], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_warp_of_an_all_nan_flow_on_the_card(cuda_device):
+    """A FOTO solve stopped by its NaN guard returns an all-NaN flow; its
+    warp must give NaN pixels on the card, not an out-of-range gather
+    (a device-side assert ends the process's CUDA context)."""
+    from ofot_tpu_torch.utils import warp
+    f1 = torch.rand(24, 30, device=cuda_device)
+    u = torch.full_like(f1, float("nan"))
+    out = warp.apply_flow(f1, u, u, torch.zeros_like(f1))
+    torch.cuda.synchronize()
+    assert out.shape == f1.shape and torch.isnan(out).all()
+    # the context still works after it
+    z = torch.zeros_like(f1)
+    assert torch.equal(warp.apply_flow(f1, z, z), f1)

@@ -236,13 +236,48 @@ def test_batched_params_match_jax(extra):
     assert pipeline._batched_params(extra) == want
 
 
-@pytest.mark.parametrize("extra,match", [(["--data-parallel=2"], "item 10")])
+def _assert_flows_match(results, reference, seqs, algos, bound=1e-4):
+    for seq in seqs:
+        for algo in algos:
+            aepe = _aepe(Path(results) / seq / f"{algo}.flo",
+                         Path(reference) / seq / f"{algo}.flo")
+            assert aepe < bound, (seq, algo, aepe)
+
+
+@pytest.mark.parametrize("extra,match", [(["--data-parallel=2"], "")])
 def test_unported_batch_layouts_exit_2(sweeps, tmp_path, capsys, extra,
                                        match):
+    """``--data-parallel`` runs now (it exited 2 before the distribution
+    layer was ported): 2 ranks, every algo, the one-process batch's
+    flows and manifest rows."""
     argv = _run_argv(sweeps / "data", tmp_path, "--batch", *extra)
-    assert pipeline.main(argv) == 2
+    assert pipeline.main(argv) == 0
     assert match in capsys.readouterr().err
-    assert not (tmp_path / "manifest.json").exists()
+    _assert_flows_match(tmp_path, sweeps / "batch", SEQS,
+                        [a.lower() for a in ALGOS.split(",")])
+    rows, want = _manifest(tmp_path), _manifest(sweeps / "batch")
+    assert rows.keys() == want.keys()
+    for seq in rows:
+        for algo in ALGOS.split(","):
+            assert rows[seq][algo].keys() == want[seq][algo].keys()
+            assert rows[seq][algo]["batch_size"] == \
+                want[seq][algo]["batch_size"]
+
+
+@pytest.mark.parametrize("mode", ["map", "vmap"])
+def test_batch_data_parallel_matches_single_process(sweeps, tmp_path, mode):
+    """``run --batch --data-parallel 4 --platform=cpu``: the pairs split
+    over 4 ranks (2 + 1 sequences padded to 4) give the one-process
+    batch's flows (AEPE < 1e-4, tests/test_batch_sweep.py's bound)."""
+    common = ["--batch", f"--batch-mode={mode}"]
+    one, dp = tmp_path / "one", tmp_path / "dp"
+    assert pipeline.main(_run_argv(sweeps / "data", one, *common,
+                                   algos="GN,foto")) == 0
+    assert pipeline.main(_run_argv(sweeps / "data", dp, *common,
+                                   "--data-parallel", "4",
+                                   algos="GN,foto")) == 0
+    _assert_flows_match(dp, one, SEQS, ["gn", "foto"])
+    assert _manifest(dp).keys() == _manifest(one).keys()
 
 
 def test_batch_vmap_runs(sweeps, tmp_path):
@@ -374,6 +409,41 @@ def test_rung1_reruns_the_ports_cli_in_process_with_exact(sweeps, tmp_path):
         ["--max-it=50", "--platform=cpu"])
     assert pipeline._escalate_sinkhorn_inprocess(argv)
     assert json.loads(stats.read_text())["stabilizer"] == "exact"
+
+
+@pytest.mark.parametrize("batch", [False, True])
+def test_failing_f64_resolve_marks_the_row_and_the_sweep_goes_on(
+        sweeps, tmp_path, monkeypatch, capsys, batch):
+    """An exception in rung 2's in-process float64 re-solve gives the row
+    ``escalation_failed``, and the sweep writes its other rows and returns
+    0, as the JAX pipeline does when its float64 subprocess fails."""
+    from ofot_tpu_torch.cli import main as cli_main
+    real, f64_runs = cli_main.main, []
+
+    def main(argv):
+        if "--precision=f64" in argv:
+            f64_runs.append(argv)
+            raise RuntimeError("CUDA out of memory (simulated)")
+        return real(argv)
+
+    monkeypatch.setattr(cli_main, "main", main)
+    argv = _run_argv(sweeps / "data", tmp_path, *(["--batch"] if batch
+                                                  else []),
+                     algos="GN,sinkhorn", datasets="middlebury-1")
+    # a tolerance that 4 iterations cannot meet sends both rows to rung 2
+    argv[argv.index(FAST)] = FAST + " --sinkhorn-tol=1e-12"
+    assert pipeline.main(argv) == 0
+    assert len(f64_runs) == 2
+    assert "RuntimeError: CUDA out of memory" in capsys.readouterr().err
+    rows = _manifest(tmp_path)
+    assert sorted(rows) == ["middlebury-1/a", "middlebury-1/b"]
+    for seq, entry in rows.items():
+        assert entry["sinkhorn"]["escalation_failed"] is True
+        assert "escalated_f64" not in entry["sinkhorn"]
+        assert entry["GN"]["status"] == "ok"
+        for algo in ("gn", "sinkhorn"):
+            assert (tmp_path / seq / f"{algo}.flo").exists()
+            assert (tmp_path / seq / f".out.{algo}.sucess").exists()
 
 
 def test_batch_interrupted_escalation_not_marked_done(sweeps, tmp_path,

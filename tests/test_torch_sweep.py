@@ -138,23 +138,30 @@ def test_group_by_shape_and_pad_batch():
 
 
 def test_vmap_and_mesh_raise(frames):
+    """The lockstep batch runs; a mesh runs too (tests/test_torch_parallel.py
+    holds it), and refuses a batch its ``data`` axis does not divide, as
+    JAX's ``_prep_batch`` does; an unknown batch mode raises."""
+    import types
     f1s, f2s = frames
-    # the lockstep batch runs now; only the mesh still raises
     u, v, m, diag = sweep.solve_batch_full(
         "foto", f1s, f2s, None, batch_mode="vmap", device="cpu",
         foto_params=dict(Nt=4, max_it=2, stepA_solver="dct"))
     assert u.shape == v.shape == m.shape == f1s.shape
     assert diag["iterations"].tolist() == [2, 2, 2]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sweep.solve_batch_full("foto", f1s, f2s, object(), batch_mode="vmap",
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sweep.solve_batch_full("foto", f1s, f2s, object(), device="cpu")
+    # a stand-in for a 2-rank data mesh: 3 pairs do not split over it
+    mesh = types.SimpleNamespace(size=lambda name: 2, index=lambda name: 0,
+                                 names=("data",))
+    for mode in ("map", "vmap"):
+        with pytest.raises(ValueError, match="not divisible by data=2"):
+            sweep.solve_batch_full("foto", f1s, f2s, mesh, batch_mode=mode,
+                                   device="cpu")
     with pytest.raises(ValueError, match="unknown batch_mode"):
         sweep.solve_batch_full("foto", f1s, f2s, None, batch_mode="scan",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sweep.solve_foto_batch(f1s, f2s, 4, object(), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by data=2"):
+        sweep.solve_foto_batch(f1s, f2s, 4, mesh, device="cpu")
+    with pytest.raises(ValueError, match="not divisible by data=2"):
+        sweep.solve_gn_batch(f1s, f2s, mesh, device="cpu")
 
 
 @pytest.mark.parametrize("bad,match", [
