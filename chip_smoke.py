@@ -135,6 +135,29 @@ Phases, each printed with its elapsed seconds:
    logged.  Cuts: the tiled FOTO and WFR run DIST_MAX_IT iterations, the
    tiled GN at most DIST_GN_MAXITER CG steps, the workers' FOTO
    DIST_WORKER_ITERS iterations.  Each leg's wall is logged.
+19. device loops: every solver loop at 320x240 on the host loop
+   (``loop="host"``) and on the device loop (``loop="device"``, captured
+   graphs of K iterations, ``solvers/device_loop.py``) in one call, the
+   device loop twice (cold: it captures; warm: it replays the cached
+   graph): FOTO ``pallas``, ``dct``, ``dct-fused``, ``dct-refined`` and
+   ``cg-pallas`` (max-it cut to DEVICE_LOOP_CG_PALLAS_MAX_IT), WFR
+   ``pallas`` and ``dct-fused``, GN, the 4-level GN pyramid, HS, the
+   Sinkhorn flow (``auto`` and ``exact``) and the lockstep FOTO at 8
+   pairs.  Each must give the host loop's fields bitwise, its iterations
+   and CG steps, and the launch relation (below); the phase logs warm
+   walls and ms per iteration (CG step) of both loops, capture ms, K and
+   replays, a profiler window's idle share and the peak memory of each,
+   then sweeps K over DEVICE_LOOP_BLOCKS on FOTO ``pallas``.
+
+On the card every solver loop runs on the device loop by default, so
+wherever a phase held a kernel's launches to the iterations (phases 4, 8,
+13, 15, 16, 17 and 19), ``check_launches`` holds the replay relation
+instead: launches = warm-up launches (one iteration a capture) + replayed
+launches, replayed launches = the iteration slots of the replays that
+launched the kernel (replays x K), and iterations <= slots <= iterations
++ (K - 1) a loop.  Host loops (phase 17's ``--loop host`` run, phase 19's
+host runs, the tiled and GSPMD loops of phase 18) keep launches =
+iterations.
 
 Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
 times it a second time cold, rotating over four input and output sets
@@ -156,6 +179,7 @@ not 0 and no result line is printed.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -179,7 +203,8 @@ from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.ops.kernels import dct_solve as ds
 from ofot_tpu_torch.ops.kernels import projection as pk
 from ofot_tpu_torch.ops import operators
-from ofot_tpu_torch.solvers import dct, foto, gn, hs, pyramid, wfr
+from ofot_tpu_torch.solvers import (dct, device_loop, foto, gn, hs, pyramid,
+                                    sinkhorn, wfr)
 from ofot_tpu_torch.utils import flo, image, metrics
 
 SEED = 0
@@ -747,7 +772,7 @@ def run_cli_path(workdir: Path, label: str, args, expect):
     out, bench, state = d / "flow.flo", d / "bench.txt", d / "state.npz"
     argv = [str(p0), str(p1), *args, f"--out={out}",
             f"--save-benchmark={bench}", f"--checkpoint={state}", "--quiet"]
-    kernels.reset_launch_counts()
+    reset_counts()
     rc = cli.main(argv)
     launches = kernels.launch_counts()
     if rc != 0:
@@ -762,7 +787,8 @@ def run_cli_path(workdir: Path, label: str, args, expect):
          f"IE={ie:.6g} IE_identity={ie_identity:.6g}")
     if not iterations > 0:
         raise AssertionError(f"{label}: no ALG2 iteration ran")
-    check_launches(label, launches, expect(iterations, cg_steps))
+    check_launches(label, launches, expect(iterations, cg_steps),
+                   loops=device_loop.stats)
     if not np.isfinite(crit):
         raise AssertionError(f"{label}: the solve ended on a NaN criterion")
     return dict(iterations=iterations, cg_steps=cg_steps, crit=crit,
@@ -770,12 +796,41 @@ def run_cli_path(workdir: Path, label: str, args, expect):
                 ie_identity=ie_identity)
 
 
-def check_launches(label, launches, expect):
+def reset_counts() -> None:
+    """Every kernel's launch count and the device loop's statistics set
+    to 0."""
+    kernels.reset_launch_counts()
+    device_loop.reset_stats()
+
+
+def check_launches(label, launches, expect, loops=None):
+    """``expect`` gives, per kernel, the launches of the host loop: the
+    iterations (or CG steps) that launch it once each; every other kernel
+    must launch 0 times.  With ``loops`` (the device loop's statistics of
+    the run), a kernel that captured graphs launched is held to the replay
+    relation instead: launches = warm-up launches + replayed launches,
+    replayed launches = the iteration slots of the replays that launched
+    it (replays x K), and iterations <= slots <= iterations + (K - 1) a
+    loop."""
     want = {k: 0 for k in kernels.KERNELS}
     want.update(expect)
-    if launches != want:
-        raise AssertionError(f"{label}: kernel launches {launches}, "
-                             f"expected {want}")
+    replayed = {} if loops is None else loops.graph_launches
+    bad = []
+    for k, n in want.items():
+        if not replayed.get(k):
+            if launches[k] != n:
+                bad.append(f"{k}: {launches[k]} launches, expected {n}")
+            continue
+        eager, graph = loops.eager_launches.get(k, 0), replayed[k]
+        slots, spare = loops.kernel_slots[k], loops.kernel_spare.get(k, 0)
+        if not (launches[k] == eager + graph and graph == slots
+                and eager <= loops.captures and n <= slots <= n + spare):
+            bad.append(f"{k}: {launches[k]} launches = {eager} eager + "
+                       f"{graph} replayed over {slots} slots (spare "
+                       f"{spare}, {loops.captures} captures), for {n} "
+                       "iterations")
+    if bad:
+        raise AssertionError(f"{label}: {'; '.join(bad)}")
 
 
 def check_cli_outputs(workdir: Path, label: str, d: Path):
@@ -877,7 +932,7 @@ def profile_window(label: str, run, n: int, top: int = 15,
     for e in device[:top]:
         _log(f"  {e.self_device_time_total / n:9.1f} us/iter "
              f"{e.count // n:4d}x  {e.key[:90]}")
-    return events, busy_us / 1e3
+    return events, busy_us / 1e3, wall_us / 1e3
 
 
 def profile_alg2(rho):
@@ -891,7 +946,7 @@ def profile_alg2(rho):
     kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA,
               ops=foto.stepA_ops("pallas"))
     foto.solve_potential_with_history(a, b, SHAPE[0], 2, **kw)
-    events, _ = profile_window("foto pallas", lambda k: (
+    events, _, _ = profile_window("foto pallas", lambda k: (
         foto.solve_potential_with_history(a, b, SHAPE[0], k, **kw)), n)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
@@ -983,7 +1038,7 @@ def run_variational_path(workdir: Path, label: str, args):
     argv = [str(p0), str(p1), *args, f"--out={d / 'flow.flo'}",
             f"--save-benchmark={d / 'bench.txt'}", "--quiet"]
     out = io.StringIO()
-    kernels.reset_launch_counts()
+    reset_counts()
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     launches = kernels.launch_counts()
@@ -1113,8 +1168,8 @@ def profile_gn_hs_paths(rho):
         steps = sum(r.iterations for r in cgs)
         _log(f"  warm {label}: {steps} CG steps in {el:.4f} s "
              f"({1e3 * el / steps:.4f} ms each)")
-        _, busy_ms = profile_window(label, lambda n: solve(a, b), 1, top=10,
-                                    unit="solve")
+        _, busy_ms, _ = profile_window(label, lambda n: solve(a, b), 1,
+                                       top=10, unit="solve")
         _log(f"  {label}: device {busy_ms / steps:.4f} ms per CG step")
     ops = foto.stepA_ops("dct-refined")
     kw = dict(r=1.0, reg_epsilon=1e-2, admm_alpha=ADMM_ALPHA, ops=ops)
@@ -1179,7 +1234,7 @@ def run_sinkhorn_path(workdir: Path, label: str, extra):
     argv = [str(p0), str(p1), *SINKHORN_ARGS, *extra, "--quiet",
             f"--out={d / 'flow.flo'}", f"--save-benchmark={d / 'bench.txt'}",
             f"--log-jsonl={d / 'log.jsonl'}"]
-    kernels.reset_launch_counts()
+    reset_counts()
     rc = cli.main(argv)
     launches = kernels.launch_counts()
     if rc != 0:
@@ -1424,8 +1479,9 @@ def profile_sinkhorn(rho):
         t0 = time.time()
         block(25).cpu()
         ms = 1e3 * (time.time() - t0) / 25
-        events, busy_ms = profile_window(f"sinkhorn {stab} block", block, 25,
-                                         top=8, unit="Sinkhorn iterations")
+        events, busy_ms, _ = profile_window(
+            f"sinkhorn {stab} block", block, 25, top=8,
+            unit="Sinkhorn iterations")
         launches = sum(e.count for e in events
                        if e.device_type == DeviceType.CUDA)
         _log(f"  sinkhorn {stab}: warm {ms:.4f} ms per iteration (host "
@@ -1523,7 +1579,7 @@ def run_sweep(data: Path, results: Path, *extra):
             "--datasets", ",".join(SWEEP_DATASETS), "--algos",
             ",".join(SWEEP_ALGOS), *extra]
     out = io.StringIO()
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(out):
@@ -1624,7 +1680,8 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch,
          f"{ees}; re-solved with the exact softmin: {escalated}")
     if lockstep:
         alg2_iterations = sum(group_iterations.values())
-    check_launches(label, launches, {"fused_pointwise": alg2_iterations})
+    check_launches(label, launches, {"fused_pointwise": alg2_iterations},
+                   loops=device_loop.stats)
     return alg2_iterations
 
 
@@ -1855,7 +1912,7 @@ def lockstep_dct_solve(device, mem_bw, f32_rate):
     if not rel <= DCT_RTOL:
         raise AssertionError(f"batched dct_solve: relative error {rel:.3e} "
                              f"> {DCT_RTOL}")
-    p = ds._plan_for(F, r, eps)
+    p = ds.plan_for(F, r, eps)
     Fz = ds.t_forward(F, p)
     enqueue, out = ds.prepare_launch(Fz, p, r)
     enqueue()
@@ -1989,7 +2046,7 @@ def _timed_batch(algo, f1s, f2s, kw, mode):
     before and read just after -> (u, v, m, diag, seconds, launches)."""
     from ofot_tpu_torch.parallel import sweep
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     u, v, m, diag = sweep.solve_batch_full(algo, f1s, f2s, batch_mode=mode,
                                            device=CARD, **kw)
@@ -2026,7 +2083,8 @@ def lockstep_solves():
         its, map_its = d[count].tolist(), dm[count].tolist()
         if algo in ("foto", "WFR"):
             check_launches(f"lockstep {algo}", launches,
-                           {"fused_pointwise": max(its)})
+                           {"fused_pointwise": max(its)},
+                           loops=device_loop.stats)
             cap = kw[f"{'foto' if algo == 'foto' else 'wfr'}_params"][
                 "max_it"]
         else:
@@ -2095,7 +2153,8 @@ def lockstep_other_sets():
     kw = _batch_kw("foto", stepA_solver="dct-fused")
     u, v, m, d, s, launches = _timed_batch("foto", a, b, kw, "vmap")
     its = check("lockstep dct-fused", u, v, m, d, a, b, 200)
-    check_launches("lockstep dct-fused", launches, {"dct_solve": max(its)})
+    check_launches("lockstep dct-fused", launches, {"dct_solve": max(its)},
+                   loops=device_loop.stats)
     _log(f"  lockstep foto dct-fused B={LOCKSTEP_SETS_B}: iterations {its}, "
          f"launches {launches}, {s:.4f} s")
     out["dct-fused"] = dict(iterations=its, launches=launches, seconds=s)
@@ -2118,7 +2177,8 @@ def lockstep_other_sets():
         foto._Lockstep.cg_solve = staticmethod(real)
     its = check("lockstep cg-pallas", u, v, m, d, a, b, None)
     check_launches("lockstep cg-pallas", launches,
-                   {"cg_operator_blocked": sum(steps)})
+                   {"cg_operator_blocked": sum(steps)},
+                   loops=device_loop.stats)
     _log(f"  lockstep foto cg-pallas B={LOCKSTEP_SETS_B}, max-it cut to "
          f"{LOCKSTEP_CG_PALLAS_MAX_IT} (the pipeline's 200): iterations "
          f"{its}, per-pair CG steps {d['inner_iterations'].tolist()}, "
@@ -2131,7 +2191,7 @@ def lockstep_other_sets():
     u, v, m, d, s, launches = _timed_batch("foto", f1s, f2s, kw, "vmap")
     its = check("lockstep auto_r", u, v, m, d, f1s, f2s, None)
     check_launches("lockstep auto_r", launches,
-                   {"fused_pointwise": max(its)})
+                   {"fused_pointwise": max(its)}, loops=device_loop.stats)
     _log(f"  lockstep foto auto_r B={LOCKSTEP_B}: iterations {its}, "
          f"launches {launches}, {s:.4f} s")
     out["auto_r"] = dict(iterations=its, launches=launches, seconds=s)
@@ -2218,6 +2278,8 @@ def run_lockstep_pipeline(workdir: Path, seqs):
 # 2: these two runs are there for their launch checks and readings).
 BENCH_ITERS, BENCH_REPEATS, BENCH_SHORT_REPEATS = 200, 5, 2
 BENCH_RUNS = (("auto", []),
+              ("auto host", ["--loop", "host", "--no-families",
+                             "--repeats", str(BENCH_SHORT_REPEATS)]),
               ("dct-fused", ["--ops", "dct-fused", "--no-families",
                              "--repeats", str(BENCH_SHORT_REPEATS)]),
               ("batch 8", ["--batch", "8", "--no-families",
@@ -2243,7 +2305,7 @@ def run_bench(label, extra):
     from ofot_tpu_torch import bench
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -2277,6 +2339,7 @@ def bench_phase():
     recs = {}
     for label, extra in BENCH_RUNS:
         rec, launches, _ = run_bench(label, extra)
+        loops = device_loop.stats
         families = "--no-families" not in extra
         repeats = (BENCH_SHORT_REPEATS if "--repeats" in extra
                    else BENCH_REPEATS)
@@ -2287,14 +2350,25 @@ def bench_phase():
         kernel = "dct_solve" if rec["ops"] == "dct-fused" else \
             "fused_pointwise"
         expect = {kernel: want}
-        check_launches(f"bench {label}", launches, expect)
-        _log(f"  bench {label}: ops {rec['ops']}, {kernel} launched "
-             f"{launches[kernel]} times = its ALG2 iterations"
+        check_launches(f"bench {label}", launches, expect, loops=loops)
+        _log(f"  bench {label}: loop {rec['loop']}, ops {rec['ops']}, "
+             f"{kernel} launched {launches[kernel]} times for its {want} "
+             f"ALG2 iterations ({loops.eager_launches.get(kernel, 0)} "
+             f"warm-up launches, {loops.replays} replays)"
              + (" (stepA solves)" if kernel == "dct_solve" else "")
              + (", the WFR family's included" if families else ""))
         recs[label] = dict(rec, launches=launches)
     if recs["auto"]["ops"] != "pallas":
         raise AssertionError(f"bench auto resolved {recs['auto']['ops']}")
+    if recs["auto"]["loop"] != "device" or recs["auto host"]["loop"] != "host":
+        raise AssertionError("bench loops: auto "
+                             f"{recs['auto']['loop']}, host "
+                             f"{recs['auto host']['loop']}")
+    _log(f"  bench wall_ms_per_iter: device loop "
+         f"{recs['auto']['wall_ms_per_iter']}, host loop "
+         f"{recs['auto host']['wall_ms_per_iter']} (marginals "
+         f"{recs['auto']['device_ms_per_iter_marginal']} and "
+         f"{recs['auto host']['device_ms_per_iter_marginal']})")
     return recs
 
 
@@ -2604,6 +2678,194 @@ def distribution_phase(workdir: Path, rho, seqs):
     return out["(b)"]
 
 
+# --------------------------------------------------------- device loops
+
+# Phase 19.  Every loop at 320x240 (Nt=16 for FOTO and WFR) on the host
+# loop and on the device loop in one call: FOTO_ARGS' and WFR_ARGS'
+# parameters (the cg-pallas set cut to DEVICE_LOOP_CG_PALLAS_MAX_IT ALG2
+# iterations), GN_ARGS, HS_ARGS, the 4-level GN pyramid, the Sinkhorn flow
+# at SINKHORN_ARGS (annealed, both stabilizers) and the lockstep FOTO at 8
+# pairs; then the block size K swept on FOTO pallas.
+DEVICE_LOOP_CG_PALLAS_MAX_IT = 20
+DEVICE_LOOP_BLOCKS = (1, 4, 8, 16)
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+        return torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+    return torch.equal(a, b)
+
+
+def device_loop_paths(rho):
+    """name -> (run(loop) -> (fields, iterations, CG steps), the kernel
+    each iteration (or CG step) launches once, the unit it counts)."""
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device=CARD)
+            for x in rho)
+    Nt = SHAPE[0]
+    alg2 = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=200,
+                admm_alpha=ADMM_ALPHA)
+    f1s, f2s = (torch.as_tensor(x, device=CARD) for x in lockstep_pairs())
+
+    def state(st):
+        return ((st.mu, st.q, st.phi, st.crit),
+                int(torch.as_tensor(st.iteration).max()), st.cg_iterations)
+
+    def foto_path(solver, **kw):
+        return lambda loop: state(foto.alg2_loop(
+            a, b, Nt, ops=foto.stepA_ops(solver), loop=loop,
+            **dict(alg2, **kw)))
+
+    def wfr_path(solver):
+        return lambda loop: state(wfr.alg2_loop(
+            a, b, Nt, delta=WFR_DELTA, ops=foto.stepA_ops(solver), loop=loop,
+            **alg2))
+
+    def cg_path(solve):
+        def run(loop):
+            r = solve(a, b, loop)
+            return (r.cg.x,), r.cg.iterations, r.cg.iterations
+        return run
+
+    def pyramid_path(loop):
+        log = []
+        u, v, m = pyramid.solve_gn_pyramid(a, b, 0.1, 0.2,
+                                           levels=PYRAMID_LEVELS,
+                                           cg_log=log, loop=loop)
+        steps = sum(c.iterations for c in log)
+        return (u, v, m), steps, steps
+
+    def sinkhorn_path(stabilizer):
+        def run(loop):
+            res = sinkhorn.flow(a, b, SINKHORN_EPS, max_iter=1000,
+                                tol=SINKHORN_TOL, stabilizer=stabilizer,
+                                loop=loop)
+            return (res.u, res.v, res.cost_ab), res.iterations, 0
+        return run
+
+    def lockstep_path(loop):
+        return state(foto.alg2_loop_batched(
+            f1s, f2s, Nt, ops=foto.stepA_ops("pallas"), loop=loop, **alg2))
+
+    return {
+        "foto pallas": (foto_path("pallas"), "fused_pointwise", "its"),
+        "foto dct": (foto_path("dct"), None, "its"),
+        "foto dct-fused": (foto_path("dct-fused"), "dct_solve", "its"),
+        "foto dct-refined": (foto_path("dct-refined"), None, "its"),
+        "wfr pallas": (wfr_path("pallas"), "fused_pointwise", "its"),
+        "wfr dct-fused": (wfr_path("dct-fused"), "dct_solve", "its"),
+        "gn": (cg_path(lambda p, q, loop: gn.solve_fields(
+            p, q, 0.1, 0.2, loop=loop)), None, "CG steps"),
+        "gn pyramid": (pyramid_path, None, "CG steps"),
+        "hs": (cg_path(lambda p, q, loop: hs.solve_fields(
+            p, q, 0.1, loop=loop)), None, "CG steps"),
+        "foto cg-pallas": (foto_path(
+            "cg-pallas", max_it=DEVICE_LOOP_CG_PALLAS_MAX_IT),
+            "cg_operator_blocked", "CG steps"),
+        "sinkhorn auto": (sinkhorn_path("matmul"), None, "its"),
+        "sinkhorn exact": (sinkhorn_path("exact"), None, "its"),
+        f"lockstep foto B={LOCKSTEP_B}": (lockstep_path, "fused_pointwise",
+                                          "its"),
+    }
+
+
+def _loop_run(fn, loop):
+    """One run of ``fn(loop)`` with the counts and the peak memory reset
+    just before -> (result, seconds, launches, loop stats, peak bytes over
+    the bytes held before)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(loop)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, seconds, kernels.launch_counts(),
+            copy.deepcopy(device_loop.stats),
+            torch.cuda.max_memory_allocated() - held)
+
+
+def device_loop_phase(rho):
+    """Phase 19: each path's host loop against its device loop (a cold run
+    that captures, then a warm one that replays the cached graph): the
+    same bits, iterations and CG steps, the launch relation, warm walls
+    and ms per iteration, capture ms, K and replays, a profiler window's
+    idle share and the peak memory; then the K sweep on FOTO pallas."""
+    out = {}
+    for name, (fn, kernel, unit) in device_loop_paths(rho).items():
+        host = _loop_run(fn, "host")
+        device_loop.clear_cache()        # the cold run captures afresh
+        cold = _loop_run(fn, "device")
+        warm = _loop_run(fn, "device")
+        (hf, h_its, h_cg), host_s, host_l, _, host_peak = host
+        n = max(int(h_cg if unit == "CG steps" else h_its), 1)
+        expect = {kernel: n} if kernel else {}
+        check_launches(f"host loop {name}", host_l, expect)
+        for label, run in (("cold", cold), ("warm", warm)):
+            (df, d_its, d_cg), _, launches, loops, _ = run
+            if not (d_its == h_its and torch.equal(torch.as_tensor(d_cg),
+                                                   torch.as_tensor(h_cg))
+                    and all(map(_same_bits, hf, df))):
+                raise AssertionError(
+                    f"device loop {name} ({label}): {d_its} iterations "
+                    f"against the host loop's {h_its}, or fields not "
+                    "bitwise equal")
+            check_launches(f"device loop {name} ({label})", launches, expect,
+                           loops=loops)
+        _, busy_ms, wall_ms = profile_window(
+            f"device loop {name}", lambda k: fn("device"), n, top=5,
+            unit=unit)
+        rec = dict(iterations=h_its, unit=unit, count=n,
+                   host_s=host_s, device_s=warm[1], cold_s=cold[1],
+                   host_ms=1e3 * host_s / n, device_ms=1e3 * warm[1] / n,
+                   capture_ms=cold[3].capture_ms, captures=cold[3].captures,
+                   warm_captures=warm[3].captures,
+                   warm_capture_ms=warm[3].capture_ms,
+                   replays=warm[3].replays, block=device_loop.BLOCK,
+                   idle=1.0 - busy_ms / wall_ms, device_busy_ms=busy_ms / n,
+                   warm_busy=busy_ms / (1e3 * warm[1]),
+                   host_peak=host_peak, device_peak=cold[4])
+        _log(f"  {name}: {n} {unit}, bitwise; host loop {host_s:.4f} s "
+             f"({rec['host_ms']:.4f} ms each), device loop warm "
+             f"{warm[1]:.4f} s ({rec['device_ms']:.4f} ms each; "
+             f"{rec['warm_captures']} captures in "
+             f"{rec['warm_capture_ms']:.2f} ms), cold {cold[1]:.4f} s with "
+             f"{rec['captures']} captures in {rec['capture_ms']:.2f} ms; "
+             f"K={rec['block']}, {rec['replays']} replays; profiled idle "
+             f"{100 * rec['idle']:.1f}% (device busy "
+             f"{rec['device_busy_ms']:.4f} ms each = "
+             f"{100 * rec['warm_busy']:.1f}% of the unprofiled warm wall); "
+             "peak memory host "
+             f"{host_peak / 2**20:.1f} MiB, device {cold[4] / 2**20:.1f} "
+             "MiB")
+        out[name] = rec
+
+    fn, kernel, _ = device_loop_paths(rho)["foto pallas"]
+    sweep, block = {}, device_loop.BLOCK
+    try:
+        for K in DEVICE_LOOP_BLOCKS:
+            device_loop.BLOCK = K
+            cold = _loop_run(fn, "device")
+            warm = _loop_run(fn, "device")
+            (_, its, _), seconds, launches, loops, _ = warm
+            check_launches(f"K={K}", launches, {kernel: its}, loops=loops)
+            sweep[K] = dict(ms=1e3 * seconds / its,
+                            capture_ms=cold[3].capture_ms,
+                            replays=loops.replays, slots=loops.slots)
+            _log(f"  K sweep, foto pallas, K={K}: {its} iterations, warm "
+                 f"{seconds:.4f} s ({sweep[K]['ms']:.4f} ms each), "
+                 f"{loops.replays} replays ({loops.slots - its} masked "
+                 f"iterations), capture {cold[3].capture_ms:.2f} ms")
+    finally:
+        device_loop.BLOCK = block
+    out["K sweep"] = sweep
+    return out
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -2709,6 +2971,9 @@ def main() -> int:
 
         with Phase("18 distribution"):
             gspmd_launches = distribution_phase(workdir, rho, seqs)
+
+        with Phase("19 device loops"):
+            device_loop_phase(rho)
 
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path

@@ -1,7 +1,8 @@
 """Benchmark: FOTO ALG2 throughput at the reference's production config, on
 the port.
 
-    python -m ofot_tpu_torch.bench [--platform cuda|cpu] [--ops auto] ...
+    python -m ofot_tpu_torch.bench [--platform cuda|cpu] [--ops auto]
+                                   [--loop auto|device|host] ...
 
 Counterpart of the JAX package's ``bench.py``, with its workload and its
 contract: it prints ONE JSON line last,
@@ -24,14 +25,17 @@ iteration at 64x48, Nt=8 (BASELINE.md) = 24576 / 0.28 = 87,771
 grid-point-iters/s, the JAX bench's ``BASELINE_PTS_PER_S``.
 
 The timed loop reads nothing from the device (but the ``cg`` set's CG,
-which reads its residual once a step): the iterations are enqueued from
-the host one after another (the port's loops run on the host), the device
-is synchronized once at the end, and the criterion and the CG count are
-read after the clock stops.  So ``wall_ms_per_iter`` is the
-port's dispatch-bound rate; no CUDA graph is captured.
+which reads its residual once a block of steps), the device is
+synchronized once at the end, and the criterion and the CG count are read
+after the clock stops.  ``--loop device`` (the default on cuda) replays a
+captured graph of K iterations (``solvers/device_loop.fori_loop``, the
+counterpart of the JAX bench's ``fori_loop`` program; the ``cg`` set keeps
+its ALG2 loop on the host around the captured CG), so
+``wall_ms_per_iter`` is the card's rate; ``--loop host`` enqueues the
+iterations from the host one after another, the port's dispatch-bound
+rate of earlier runs.  The JSON line names the loop (``loop``).
 ``device_ms_per_iter_marginal`` is the chain marginal of the JAX bench
-((t_5N - t_N) / 4N, which cancels the per-call constant); on the card the
-host's enqueue rate still bounds it where the device is faster.  The
+((t_5N - t_N) / 4N, which cancels the per-call constant).  The
 family keys (``gn_ms_device``, ``wfr_ms_per_iter_device``,
 ``sinkhorn_us_per_iter_device``) are the same chain marginals of a GN
 solve, a WFR iteration (with the primary ops set) and a Sinkhorn
@@ -109,6 +113,11 @@ def parse_args(argv=None):
                             "dct-fused"],
                    help="stepA/pointwise ops set to time; auto resolves "
                         "by device (pallas on cuda: the fused kernel)")
+    p.add_argument("--loop", choices=["auto", "device", "host"],
+                   default="auto",
+                   help="device: replay captured graphs of the iterations; "
+                        "host: enqueue them one by one; auto: device on "
+                        "cuda, host on the cpu")
     p.add_argument("--batch", type=int, default=1,
                    help="solve B rolled copies of the pair per call, as "
                         "one lockstep batch; throughput counts all B")
@@ -130,11 +139,12 @@ class Bench:
 
     def __init__(self, args):
         from ofot_tpu_torch.parallel.sweep import torch_device
-        from ofot_tpu_torch.solvers import foto
+        from ofot_tpu_torch.solvers import device_loop, foto
 
         self.args = args
         self.device = torch_device(args.platform)
         self.solver = foto.resolve_stepA_solver(args.ops, self.device)
+        self.loop = device_loop.resolve(args.loop, self.device)
         self.alg2_iterations = 0
         f1, f2 = normalized_pair(args.ny, args.nx)
         if args.batch > 1:
@@ -154,20 +164,43 @@ class Bench:
         ops = foto.stepA_ops(self.solver)
         return foto.lockstep_ops(ops) if self.args.batch > 1 else ops
 
-    def make_run(self, ops, iters, count=True):
-        """``iters`` ALG2 iterations from the initial state, enqueued
-        without a device read -> (crit, cg count) on the device."""
-        from ofot_tpu_torch.solvers import foto
+    def iterations(self, module, state, rho0, rhoT, iters, ops, **kw):
+        """``iters`` fixed iterations of ``module.alg2_iteration`` from
+        ``state``: replays of a captured block (``--loop device``, the sets
+        whose stepA has no inner loop), else enqueued one by one (the CG
+        stepA's loop on ``self.loop``)."""
+        from ofot_tpu_torch.solvers import device_loop
 
         a = self.args
+        kw = dict(kw, reg_epsilon=1e-2, convergence_tol=0.0,
+                  cg_rtol=a.cg_rtol, cg_maxiter=a.cg_maxiter, ops=ops,
+                  loop=self.loop)
+
+        def step(s, p, q):
+            return module.alg2_iteration(s, p, q, r=1.0, **kw)
+
+        if self.loop == "device" and ops.alg2_on_device:
+            zero = torch.zeros((), dtype=torch.int64, device=self.device)
+            if not isinstance(state.iteration, torch.Tensor):
+                state = state._replace(iteration=zero, cg_iterations=zero)
+            return device_loop.fori_loop(
+                step, state, iters, (rho0, rhoT), key=(
+                    "bench", module.__name__, type(ops),
+                    getattr(ops, "refine", None), tuple(sorted(kw.items(),
+                                                               key=str))))
+        for _ in range(iters):
+            state = step(state, rho0, rhoT)
+        return state
+
+    def make_run(self, ops, iters, count=True):
+        """``iters`` ALG2 iterations from the initial state, without a
+        device read -> (crit, cg count) on the device."""
+        from ofot_tpu_torch.solvers import foto
 
         def run():
-            st = foto.init_state(self.rho0, self.rhoT, a.Nt)
-            for _ in range(iters):
-                st = foto.alg2_iteration(
-                    st, self.rho0, self.rhoT, r=1.0, reg_epsilon=1e-2,
-                    convergence_tol=0.0,      # fixed-iteration benchmark
-                    cg_rtol=a.cg_rtol, cg_maxiter=a.cg_maxiter, ops=ops)
+            st = self.iterations(
+                foto, foto.init_state(self.rho0, self.rhoT, self.args.Nt),
+                self.rho0, self.rhoT, iters, ops)
             if count:
                 self.alg2_iterations += iters
             return torch.max(st.crit), st.cg_iterations
@@ -229,7 +262,7 @@ def bench_families(b: Bench) -> dict:
             u = torch.zeros_like(t1)
             for _ in range(reps):
                 u = gn.solve_fields(t1 + 1e-6 * u, t2, 0.1, 0.2,
-                                    rtol=1e-7).u
+                                    rtol=1e-7, loop=b.loop).u
             return torch.sum(u)
         return run
 
@@ -244,12 +277,8 @@ def bench_families(b: Bench) -> dict:
 
     def make_wfr(iters):
         def run():
-            st = wfr.init_state(rho0, rhoT, args.Nt)
-            for _ in range(iters):
-                st = wfr.alg2_iteration(
-                    st, rho0, rhoT, r=1.0, delta=2.5, reg_epsilon=1e-2,
-                    convergence_tol=0.0, cg_rtol=args.cg_rtol,
-                    cg_maxiter=args.cg_maxiter, ops=wops)
+            st = b.iterations(wfr, wfr.init_state(rho0, rhoT, args.Nt),
+                              rho0, rhoT, iters, wops, delta=2.5)
             b.alg2_iterations += iters
             return st.crit
         return run
@@ -261,8 +290,8 @@ def bench_families(b: Bench) -> dict:
     def make_sk(iters):
         def run():
             return sinkhorn.solve(rho0, rhoT, 100.0, max_iter=iters, tol=0.0,
-                                  check_every=iters,
-                                  verify=False).marginal_error
+                                  check_every=iters, verify=False,
+                                  loop=b.loop).marginal_error
         return run
 
     _log("  [sinkhorn iters]")
@@ -281,14 +310,14 @@ def bench_gn(b: Bench) -> int:
     a, c = (torch.as_tensor(f, device=b.device)
             for f in textured_pair(args.ny, args.nx))
     t0 = time.perf_counter()
-    r = gn.solve_fields(a, c, 0.1, 0.2, rtol=1e-7)
+    r = gn.solve_fields(a, c, 0.1, 0.2, rtol=1e-7, loop=b.loop)
     b.sync()
     _log(f"first: {time.perf_counter() - t0:.2f}s  iters "
          f"{r.cg.iterations} converged {r.cg.converged}")
     best = float("inf")
     for _ in range(args.repeats):
         t0 = time.perf_counter()
-        gn.solve_fields(a, c, 0.1, 0.2, rtol=1e-7).u.cpu()
+        gn.solve_fields(a, c, 0.1, 0.2, rtol=1e-7, loop=b.loop).u.cpu()
         best = min(best, time.perf_counter() - t0)
     _log(f"best wall: {best:.4f}s")
     # the reference baseline was measured at exactly 320x240; an
@@ -300,7 +329,7 @@ def bench_gn(b: Bench) -> int:
         "unit": "s",
         "vs_baseline": (round(BASELINE_GN_S / best, 2)
                         if at_baseline_shape else None),
-        "device": _device_name(b.device),
+        "device": _device_name(b.device), "loop": b.loop,
         "cg_iterations": int(r.cg.iterations),
     }))
     return 0
@@ -378,7 +407,8 @@ def main(argv=None) -> int:
             # key says the families failed (chip_smoke.py fails on it)
             _log(f"bench_families failed: {type(e).__name__}: {e}")
             out["families_error"] = f"{type(e).__name__}: {e}"
-    out.update({"device": _device_name(b.device), "ops": b.solver,
+    out.update({"device": _device_name(b.device), "loop": b.loop,
+                "ops": b.solver,
                 "batch": args.batch, "crit": crit, "cg_iterations": inner,
                 "alg2_iterations": b.alg2_iterations})
     print(json.dumps(out))

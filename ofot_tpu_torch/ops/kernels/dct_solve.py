@@ -79,7 +79,7 @@ def _per_pair(r):
     return r if isinstance(r, torch.Tensor) and r.dim() > 0 else None
 
 
-def _plan_for(F: torch.Tensor, r, reg_epsilon) -> Plan:
+def plan_for(F: torch.Tensor, r, reg_epsilon) -> Plan:
     if F.dim() not in (3, 4):
         raise ValueError(f"F must be (Nt, Ny, Nx) or (B, Nt, Ny, Nx), got "
                          f"shape {tuple(F.shape)}")
@@ -123,7 +123,7 @@ def slice_solve_reference(Fz: torch.Tensor, p: Plan,
 def dct_solve_reference(F: torch.Tensor, r, reg_epsilon) -> torch.Tensor:
     """Plain torch version of :func:`dct_solve`: the t-forward product, the
     per-slice body with ``torch.matmul``, the t-inverse product."""
-    p = _plan_for(F, r, reg_epsilon)
+    p = plan_for(F, r, reg_epsilon)
     return t_inverse(slice_solve_reference(t_forward(F, p), p, _per_pair(r)),
                      p)
 
@@ -188,7 +188,7 @@ def dct_solve(F: torch.Tensor, r, reg_epsilon) -> torch.Tensor:
     _build.check_cuda(F, "dct_solve")
     _build.check_operand("F", F, F)
     global launches
-    p = _plan_for(F, r, reg_epsilon)
+    p = plan_for(F, r, reg_epsilon)
     enqueue, out = prepare_launch(t_forward(F, p), p, _per_pair(r))
     enqueue()
     launches += 1

@@ -72,7 +72,8 @@ def tile_solve(f1, f2, mesh: Mesh, alpha, lambda_, rtol, maxiter,
         M = gn.make_jacobi_block_preconditioner(g, d)
     b = torch.stack([-fx * ft, -fy * ft, f2 * ft], dim=-3)
     res = cg(A, b, rtol=rtol, maxiter=maxiter, M=M,
-             dot=lambda p, q: mesh.all_reduce(torch.sum(p * q)))
+             dot=lambda p, q: mesh.all_reduce(torch.sum(p * q)),
+             loop="host")
     u, v, m = res.x.unbind(-3)
     return gn.GNResult(u=u, v=v, m=m, cg=res)
 

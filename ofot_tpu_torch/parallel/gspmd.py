@@ -52,9 +52,10 @@ class _GatheredStepA:
     """Mixin: a spectral stepA solved whole on the all-gathered F, this
     rank keeping its tile."""
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                    loop="host"):
         phi, n = super().stepA_solve(self.mesh.gather(F), r, reg_epsilon,
-                                     cg_rtol, cg_maxiter)
+                                     cg_rtol, cg_maxiter, loop=loop)
         return self.mesh.tile(phi), n
 
 

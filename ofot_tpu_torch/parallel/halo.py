@@ -152,7 +152,9 @@ class ShardedOps(_DefaultOps):
     inherited CG stepA, whose operator then runs the halo Laplacian and
     whose dot products are the all-reduced sum.  Hand it to
     ``foto.alg2_loop`` or ``wfr.alg2_loop`` on tiles
-    (``parallel/foto_sharded.py``)."""
+    (``parallel/foto_sharded.py``).  Its loops stay host loops
+    (``host_only``): the collectives cannot be captured in a graph."""
+    host_only = True
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh

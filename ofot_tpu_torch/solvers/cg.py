@@ -5,9 +5,19 @@ Counterpart of ``ofot_tpu.solvers.cg``, with the convergence semantics of
 benamou_brenier.py:85): start from x0 = 0, stop when
 ``||r||_2 <= max(rtol * ||b||_2, atol)`` or after ``maxiter`` iterations.
 
-The loop runs on the host and reads the squared residual norm once per
-iteration (one device-to-host copy), where the JAX version runs a
-``lax.while_loop`` on the device.
+The JAX version runs a ``lax.while_loop`` on the device.  Here
+``loop="device"`` (the default on cuda) runs the masked form of the
+iteration in blocks of K steps (``solvers/device_loop.py``): a step after
+the stop leaves every field as it was, and the loop reads the residual
+test once per block.  ``loop="host"`` (the default on the CPU) reads the
+squared residual norm once per step.  Both give the same bits.
+
+A captured block bakes in what ``A``, ``M`` and ``dot`` close over, so a
+graph is cached only under a caller's ``key`` that names all of it (the
+ALG2 stepA sets pass one: their operator closes over ``r`` and ``eps``
+only), with the data tensors they close over named ``bound`` (GN and HS:
+the pair's gradients and spectrum, copied into the cached graph's own);
+without a key each solve captures its own graph.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ofot_tpu_torch.solvers import device_loop
 
 
 class CGResult(NamedTuple):
@@ -28,15 +40,52 @@ def _default_dot(a, b):
     return torch.sum(a * b)
 
 
+class _CGState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    rnorm2: torch.Tensor
+    k: torch.Tensor          # steps taken (int64)
+
+
+def _device_cg(A, precond, dot, M, state: _CGState, thresh2, maxiter, key,
+               bound, per_pair):
+    """The masked CG iteration on the device loop; ``per_pair`` shapes a
+    (B,) scalar to its batch (identity for one system)."""
+    def running(s, thresh2):
+        return (s.k < maxiter) & (s.rnorm2 > thresh2)
+
+    def step(s, thresh2):
+        q = A(s.p)
+        alpha = per_pair(s.rz / dot(s.p, q), s.p)
+        r = s.r - alpha * q
+        z = precond(r)
+        rz_new = dot(r, z)
+        rnorm2 = rz_new if M is None else dot(r, r)
+        beta = per_pair(rz_new / s.rz, s.p)
+        return _CGState(x=s.x + alpha * s.p, r=r, p=z + beta * s.p,
+                        rz=rz_new, rnorm2=rnorm2, k=s.k + 1)
+
+    return device_loop.while_loop(
+        step, running, state, (thresh2,),
+        key=None if key is None else ("cg", key, maxiter, M is None),
+        bound=bound)
+
+
 def cg(A: Callable, b: torch.Tensor, *,
        rtol: float = 1e-6, atol: float = 0.0, maxiter: int = 1000,
        M: Optional[Callable] = None,
        dot: Callable = _default_dot,
-       x0: Optional[torch.Tensor] = None) -> CGResult:
+       x0: Optional[torch.Tensor] = None, loop: str = "auto",
+       key=None, bound=()) -> CGResult:
     """Solve ``A x = b`` with (preconditioned) CG, matrix-free.
 
     Parameters mirror scipy's ``cg``; ``M`` is the preconditioner *action*
-    (an approximation of A^-1)."""
+    (an approximation of A^-1).  ``loop``: "device", "host" or "auto"
+    (see the module docstring); ``key``: the graph cache key of ``A``,
+    ``M`` and ``dot`` (None: capture per solve), ``bound``: the data
+    tensors they close over."""
     x = torch.zeros_like(b) if x0 is None else x0
     precond = M if M is not None else (lambda v: v)
 
@@ -48,6 +97,16 @@ def cg(A: Callable, b: torch.Tensor, *,
     bnorm2 = dot(b, b)
     # scipy: ||r|| <= max(rtol*||b||, atol)
     thresh2 = torch.clamp(rtol * rtol * bnorm2, min=atol * atol)
+
+    if device_loop.resolve(loop, b.device) == "device":
+        s = _device_cg(A, precond, dot, M, _CGState(
+            x, r, p, rz, rnorm2, torch.zeros((), dtype=torch.int64,
+                                             device=b.device)),
+            thresh2, maxiter, key, bound, lambda s, like: s)
+        k, converged = (int(v) for v in torch.stack(
+            [s.k, (s.rnorm2 <= thresh2).to(s.k.dtype)]).tolist())
+        return CGResult(x=s.x, iterations=k, residual=torch.sqrt(s.rnorm2),
+                        converged=bool(converged))
 
     k = 0
     while k < maxiter and bool(rnorm2 > thresh2):
@@ -76,7 +135,8 @@ def _per_pair(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def cg_batched(A: Callable, b: torch.Tensor, *,
                rtol: float = 1e-6, atol: float = 0.0, maxiter: int = 1000,
                M: Optional[Callable] = None,
-               dot: Callable | None = None) -> CGResult:
+               dot: Callable | None = None, loop: str = "auto",
+               key=None, bound=()) -> CGResult:
     """Lockstep CG on a batch of B independent systems: ``b`` is (B, ...),
     ``A`` and ``M`` act on the whole batch, and ``dot`` reduces per pair to
     a (B,) tensor (default: the sum over every axis but the first).
@@ -86,8 +146,10 @@ def cg_batched(A: Callable, b: torch.Tensor, *,
     steps, keeps its ``x``, ``r``, ``p`` and scalars through
     ``torch.where`` (its ``p.Ap`` can be 0, so its alpha can be NaN, and a
     multiplied mask would carry that NaN in).  The loop reads one "any
-    pair still running" flag per step.  Returns a CGResult whose
-    ``iterations``, ``residual`` and ``converged`` are (B,) tensors."""
+    pair still running" flag per block of K steps (``loop="device"``) or
+    per step (``loop="host"``), as :func:`cg` does.  Returns a CGResult
+    whose ``iterations``, ``residual`` and ``converged`` are (B,)
+    tensors."""
     if dot is None:
         def dot(u, v):
             return torch.sum((u * v).flatten(1), dim=1)
@@ -101,6 +163,12 @@ def cg_batched(A: Callable, b: torch.Tensor, *,
     rnorm2 = rz if M is None else dot(r, r)
     thresh2 = torch.clamp(rtol * rtol * dot(b, b), min=atol * atol)
     k = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+
+    if device_loop.resolve(loop, b.device) == "device":
+        s = _device_cg(A, precond, dot, M, _CGState(x, r, p, rz, rnorm2, k),
+                       thresh2, maxiter, key, bound, _per_pair)
+        return CGResult(x=s.x, iterations=s.k, residual=torch.sqrt(s.rnorm2),
+                        converged=s.rnorm2 <= thresh2)
 
     while True:
         running = (k < maxiter) & (rnorm2 > thresh2)

@@ -1,0 +1,371 @@
+"""Solver loops on the device: the counterpart of ``lax.while_loop`` and
+``lax.fori_loop``.
+
+The JAX package runs every solver loop inside one jitted program, so the
+host never waits on the device until the loop is done.  Here a loop on
+CUDA tensors runs as replays of a captured ``torch.cuda.CUDAGraph`` of K
+iterations: the host reads one "still running" flag per replay, not one
+per iteration.  Inside a block, an iteration whose stopping rule has
+already fired leaves every field as it was, through a select on
+``running``:
+
+    state = select(running(state), step(state), state)     # K times
+
+which is what ``lax.while_loop`` gives (and, for a lockstep batch, what
+``jax.vmap`` of it gives: a (B,) ``running`` selects pair by pair).  The
+same kernels run in the same order on the same values, so the result is
+bitwise the host loop's.
+
+* ``loop="auto"`` is ``"device"`` on cuda and ``"host"`` on the CPU.  On
+  the CPU ``"device"`` runs the same blocked, masked body eagerly, with
+  no capture; the tests exercise that form.
+* Before a capture, the body runs once eagerly on the loop's own stream
+  (the warm-up: plans, the kernel library and the cuBLAS handles are
+  built on first use and must exist before capture), with its result
+  dropped.  The capture then records the block and the copy of its result
+  back into the graph's static input buffers, so replays chain.
+* Every tensor the body reads is either a field of the state or one of
+  ``args``: both are copied into the graph's static buffers before the
+  first replay of each loop.  Everything else the body closes over (the
+  ops set and its plans, Python scalars such as ``r``) is baked in at
+  capture, so the graph cache's key must name it.  The cache keeps the
+  body (and with it what it closes over) alive with the graph.  A body
+  whose closures hold data of the solve (GN's gradients and spectrum)
+  names those tensors ``bound``: the graph keeps the first solve's, and a
+  later solve that reuses the graph copies its own into them.
+* A capture or replay error raises.  Nothing falls back to the host loop.
+  During a capture the sync debug mode is "error", so a host read inside
+  the body raises at once.
+* The kernel wrappers count launches in Python, which a replay does not
+  run: the counts a capture added are taken back and added again on
+  every replay, so launches = eager launches (warm-ups included) +
+  replays x launches per graph.
+
+``stats`` records captures, their milliseconds, replays and the
+iteration slots the replays offered (replays x K), for the launch and
+iteration relations that ``chip_smoke.py`` checks: per kernel, launches =
+warm-up launches + replayed launches, replayed launches = the slots of the
+replays that launched it, and iterations <= slots <= iterations + (K - 1)
+a loop.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple
+
+import torch
+
+from ofot_tpu_torch.ops import kernels
+
+# Iterations per block (K).  K = 1 reads the card every iteration; from
+# K = 4 on, an ALG2 iteration costs the same on the card, while the
+# capture's time and the masked iterations past the stop (at most K - 1)
+# grow with K (PERF.md §6: the K sweep of chip_smoke.py's phase 19).
+BLOCK = 8
+# Captured graphs kept; each pins its private memory pool.
+CACHE_SIZE = 16
+
+
+@dataclass
+class Stats:
+    captures: int = 0
+    capture_ms: float = 0.0
+    replays: int = 0                # blocks run (replays, or eager blocks)
+    slots: int = 0                  # sum over replays of the block's K
+    eager_launches: dict = field(default_factory=dict)   # warm-ups
+    graph_launches: dict = field(default_factory=dict)   # by replays
+    # per kernel: the slots of the replays that launched it, and the
+    # masked iterations its loops may have run past their stops (K - 1 a
+    # while loop), so that iterations <= slots <= iterations + spare
+    kernel_slots: dict = field(default_factory=dict)
+    kernel_spare: dict = field(default_factory=dict)
+
+
+stats = Stats()
+
+
+def reset_stats() -> None:
+    global stats
+    stats = Stats()
+
+
+def resolve(loop: str, device) -> str:
+    """``"device"`` or ``"host"`` for a ``loop=`` keyword on ``device``."""
+    if loop == "auto":
+        return "device" if torch.device(device).type == "cuda" else "host"
+    if loop not in ("device", "host"):
+        raise ValueError(f"loop={loop!r}: expected auto, device or host")
+    return loop
+
+
+def select(run: torch.Tensor, new, old):
+    """Field by field, ``new`` where ``run`` else ``old``; ``run`` is 0-d
+    or (B,) (one flag per pair of a batch)."""
+    def sel(n, o):
+        return torch.where(run.view(run.shape + (1,) * (n.dim() - run.dim())),
+                           n, o)
+    return type(new)(*(sel(n, o) for n, o in zip(new, old)))
+
+
+# ------------------------------------------------------------ counters
+
+def _counts() -> dict:
+    return kernels.launch_counts()
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _shift_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` x ``delta`` to the kernels' launch counts."""
+    for name, n in delta.items():
+        mod, attr = kernels.KERNELS[name]
+        module = kernels._module(mod)
+        setattr(module, attr, getattr(module, attr) + sign * n)
+
+
+def _tally(into: dict, delta: dict) -> None:
+    for name, n in delta.items():
+        into[name] = into.get(name, 0) + n
+
+
+# ------------------------------------------------------------ runners
+
+_side_streams: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    s = _side_streams.get(device)
+    if s is None:
+        s = _side_streams[device] = torch.cuda.Stream(device)
+    return s
+
+
+class _Graph:
+    """A captured ``fn(state, args) -> (state, outs)``: static state and
+    argument buffers, the block's result copied back into the state
+    buffers, ``outs`` in static output tensors."""
+
+    def __init__(self, fn, warmup, state, args, iters: int):
+        self.fn, self.iters = fn, iters      # fn keeps its closure alive
+        device = state[0].device
+        current = torch.cuda.current_stream(device)
+        self.state = [t.clone() for t in state]
+        self.args = [t.clone() for t in args]
+        side = _side_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            before = _counts()
+            (warmup or fn)(tuple(self.state), tuple(self.args))
+            _tally(stats.eager_launches, _delta(_counts(), before))
+        current.wait_stream(side)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        before = _counts()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                self.graph.capture_begin()
+                try:
+                    new, self.outs = fn(tuple(self.state), tuple(self.args))
+                    ins = {t.data_ptr() for t in self.state + self.args}
+                    new = [n.clone() if n.data_ptr() in ins else n
+                           for n in new]
+                    for buf, n in zip(self.state, new):
+                        buf.copy_(n)
+                finally:
+                    self.graph.capture_end()
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of a solver loop failed "
+                               f"(no host fallback): {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            self.launches = _delta(_counts(), before)
+            _shift_counts(self.launches, -1)          # nothing ran
+        current.wait_stream(side)
+        stats.captures += 1
+        stats.capture_ms += 1e3 * (time.perf_counter() - t0)
+
+    def load(self, state, args) -> None:
+        for buf, t in zip(self.state + self.args, (*state, *args)):
+            buf.copy_(t)
+
+    def replay(self):
+        self.graph.replay()
+        _shift_counts(self.launches)
+        _tally(stats.graph_launches, self.launches)
+        _tally(stats.kernel_slots, dict.fromkeys(self.launches, self.iters))
+        stats.replays += 1
+        stats.slots += self.iters
+        return self.outs
+
+    def result(self) -> tuple:
+        return tuple(t.clone() for t in self.state)
+
+
+class _Eager:
+    """The same interface without a capture: each "replay" runs the block
+    eagerly (the CPU form of the device loop)."""
+
+    def __init__(self, fn, state, args, iters: int):
+        self.fn, self.iters = fn, iters
+        self.load(state, args)
+
+    def load(self, state, args) -> None:
+        self.state, self.args = tuple(state), tuple(args)
+
+    def replay(self):
+        self.state, outs = self.fn(self.state, self.args)
+        stats.replays += 1
+        stats.slots += self.iters
+        return outs
+
+    def result(self) -> tuple:
+        return self.state
+
+
+_cache: OrderedDict = OrderedDict()
+
+
+def clear_cache() -> None:
+    """Drop every cached graph (and the memory pools they pin)."""
+    _cache.clear()
+
+
+def runner(fn: Callable, state, args=(), *, key=None, iters: int = 1,
+           warmup: Callable | None = None, bound=()):
+    """A runner of the block ``fn(state, args) -> (state, outs)`` loaded
+    with ``state`` and ``args`` (tuples of tensors): ``replay()`` runs one
+    block and returns ``outs``, ``result()`` gives the state.
+
+    On cuda the block is a captured graph, cached under ``key`` and the
+    shapes and dtypes of ``state`` and ``args`` (``key=None``: captured
+    for this runner alone); on the CPU it runs eagerly.  ``iters``: the
+    iterations one block offers (for ``stats.slots``); ``warmup``: the
+    eager pre-capture call (default ``fn``); ``bound``: the tensors that
+    ``fn`` closes over and a later solve with the same ``key`` brings anew
+    (copied into the cached graph's own, which it read at capture)."""
+    state, args, bound = tuple(state), tuple(args), tuple(bound)
+    for t in (*state, *args):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"a device loop carries tensors only, got "
+                            f"{type(t).__name__}")
+    device = state[0].device
+    if device.type != "cuda":
+        return _Eager(fn, state, args, iters)
+    if key is None:
+        return _loaded(_Graph(fn, warmup, state, args, iters), state, args)
+    full = (key, iters, device, tuple((tuple(t.shape), t.dtype)
+                                      for t in (*state, *args, *bound)))
+    g = _cache.get(full)
+    if g is None:
+        g = _Graph(fn, warmup, state, args, iters)
+        g.bound = bound
+        _cache[full] = g
+        while len(_cache) > CACHE_SIZE:
+            _cache.popitem(last=False)
+    else:
+        _cache.move_to_end(full)
+        for mine, new in zip(g.bound, bound):
+            if mine is not new:
+                mine.copy_(new)
+    return _loaded(g, state, args)
+
+
+def _loaded(g: _Graph, state, args) -> _Graph:
+    g.load(state, args)
+    return g
+
+
+# ------------------------------------------------------------ loops
+
+def _block(step, running, n: int, cls, trace):
+    """The body of ``n`` masked iterations; ``outs`` is (still running,)
+    plus, with ``trace``, the (n,) "ran" flags and the stacked records."""
+    def fn(s, a):
+        s = cls(*s)
+        ran, recs = [], []
+        for _ in range(n):
+            run = running(s, *a)
+            new = step(s, *a)
+            if trace is not None:
+                ran.append(run.any())
+                recs.append(trace(s, new))
+            s = select(run, new, s)
+        outs = (running(s, *a).any(),)
+        if trace is not None:
+            outs += (torch.stack(ran),
+                     *(torch.stack(r) for r in zip(*recs)))
+        return tuple(s), outs
+    return fn
+
+
+def while_loop(step: Callable, running: Callable, state: NamedTuple,
+               args=(), *, key=None, trace: Callable | None = None,
+               show: Callable | None = None, bound=()) -> NamedTuple:
+    """``state = step(state, *args)`` while ``running(state, *args)``, in
+    blocks of ``BLOCK`` masked iterations with one flag read per block
+    (and one before the first).
+
+    ``state``: a NamedTuple of tensors; ``running`` returns a 0-d flag or
+    one flag per pair ((B,)).  ``step`` must not write into its inputs.
+    ``trace(old, new)`` returns a tuple of tensors recorded per iteration;
+    after each block ``show(*values)`` gets, for every iteration that ran
+    (any pair running), its records as Python values: the host loop's
+    per-iteration prints, in order.  ``key`` and ``bound`` as in
+    :func:`runner`."""
+    K = BLOCK
+    cls = type(state)
+    if not bool(running(state, *args).any()):
+        return state
+    body = _block(step, running, K, cls, trace)
+    r = runner(body, state, args,
+               key=None if key is None else (key, trace is not None), iters=K,
+               warmup=_block(step, running, 1, cls, trace), bound=bound)
+    while True:
+        outs = r.replay()
+        if trace is not None:
+            ran = outs[1].tolist()
+            recs = [t.tolist() for t in outs[2:]]
+            for i, flag in enumerate(ran):
+                if flag:
+                    show(*(rec[i] for rec in recs))
+        if not bool(outs[0]):
+            _tally(stats.kernel_spare,
+                   dict.fromkeys(getattr(r, "launches", ()), K - 1))
+            return cls(*r.result())
+
+
+def fori_loop(step: Callable, state: NamedTuple, n: int, args=(), *,
+              key=None) -> NamedTuple:
+    """``n`` iterations of ``state = step(state, *args)`` with no select
+    and no read: replays of a block of ``BLOCK`` iterations, then one of
+    the remainder (the counterpart of ``lax.fori_loop``)."""
+    K = BLOCK
+    cls = type(state)
+
+    def body(m):
+        def fn(s, a):
+            s = cls(*s)
+            for _ in range(m):
+                s = step(s, *a)
+            return tuple(s), ()
+        return fn
+
+    full, rest = divmod(n, K)
+    if full:
+        r = runner(body(K), state, args, key=key, iters=K, warmup=body(1))
+        for _ in range(full):
+            r.replay()
+        state = cls(*r.result())
+    if rest:
+        r = runner(body(rest), state, args, key=key, iters=rest,
+                   warmup=body(1))
+        r.replay()
+        state = cls(*r.result())
+    return state

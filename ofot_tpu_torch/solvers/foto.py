@@ -5,8 +5,14 @@ benamou_brenier.py:151-271).  One ALG2 iteration is stepA (a Poisson-like
 solve for the potential), stepB (pointwise paraboloid projection), stepC
 (dual ascent) and the Hamilton–Jacobi convergence criterion, on
 (3, Nt, Ny, Nx) tensors.  The JAX version runs the loop as a
-``lax.while_loop`` on the device; here the loop runs on the host and reads
-the ``done`` flag once per iteration (one device-to-host copy).
+``lax.while_loop`` on the device.  Here ``loop="device"`` (the default on
+cuda) runs it on the device loop of ``solvers/device_loop.py``: replays of
+a captured graph of K iterations, one ``done`` read per replay, bitwise
+the host loop.  That covers the sets whose stepA has no data-dependent
+inner loop (``dct``, ``dct-refined``, ``pallas``, ``dct-fused``); for
+``cg`` and ``cg-pallas`` the ALG2 level stays a host loop around the
+device-loop CG.  ``loop="host"`` (the default on the CPU) reads ``done``
+once per iteration.
 
 Algorithm parity notes (SURVEY.md §2 C6):
   * grid spacings dt = dx = dy = 1 (reference benamou_brenier.py:185-187);
@@ -57,19 +63,30 @@ import torch
 from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.ops.kernels import projection as projection_kernel
 from ofot_tpu_torch.ops.kernels.cg_operator import cg_operator_blocked
+from ofot_tpu_torch.ops.kernels import dct_solve as dct_solve_kernel
 from ofot_tpu_torch.ops.kernels.dct_solve import dct_solve
 from ofot_tpu_torch.ops.kernels.fused_pointwise import (
     fused_pointwise, fused_pointwise_batched)
 from ofot_tpu_torch.ops.projection import (project_paraboloid,
                                            project_paraboloid_nd)
 from ofot_tpu_torch.solvers import cg as cg_mod
-from ofot_tpu_torch.solvers import dct, flow_extract, lockstep
+from ofot_tpu_torch.solvers import dct, device_loop, flow_extract, lockstep
 from ofot_tpu_torch.solvers.lockstep import PerPair, kernel_r
+
+
+def r_key(r):
+    """``r`` as a graph cache key: its float, or a batch's per-pair
+    values (a captured graph bakes the penalty in)."""
+    return r.values if isinstance(r, PerPair) else float(r)
 
 
 class _DefaultOps:
     """Space-time operator set: plain torch stencils, CG stepA."""
     cax = 0    # the component axis of mu, q and grad_phi
+    # the ALG2 loop can run on the device loop (no data-dependent inner
+    # loop in stepA); a tiled set keeps every loop on the host
+    alg2_on_device = False
+    host_only = False
     cg_solve = staticmethod(cg_mod.cg)
     grad_st = staticmethod(operators.grad_st)
     div_st = staticmethod(operators.div_st)
@@ -81,16 +98,23 @@ class _DefaultOps:
     project_nd = staticmethod(project_paraboloid_nd)
 
     def cg_operator(self, r, reg_epsilon):
-        """The stepA system operator A = -r*L_st + r*eps*I as a callable."""
-        return lambda phi: (-r * self.laplacian_st(phi, bc="N")
-                            + (r * reg_epsilon) * phi)
+        """The stepA system operator A = -r*L_st + r*eps*I as a callable
+        (its scalars formed once: a per-pair ``r``'s arithmetic makes a
+        new tensor on the device, which a captured CG step must not)."""
+        neg_r, reps = -r, r * reg_epsilon
+        return lambda phi: (neg_r * self.laplacian_st(phi, bc="N")
+                            + reps * phi)
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                    loop="auto"):
         """Solve A phi = F; returns (phi, inner_iterations).  Default:
-        matrix-free CG with the reference's scipy-cg semantics."""
+        matrix-free CG with the reference's scipy-cg semantics, on the
+        device loop or the host loop (``loop``); its graph is cached under
+        the set and the scalars its operator closes over."""
         res = self.cg_solve(self.cg_operator(r, reg_epsilon), F,
                             rtol=cg_rtol, maxiter=cg_maxiter,
-                            dot=lambda a, b: self.sum(a * b))
+                            dot=lambda a, b: self.sum(a * b), loop=loop,
+                            key=(type(self), r_key(r), float(reg_epsilon)))
         return res.x, res.iterations
 
 
@@ -99,6 +123,7 @@ class DCTOps(_DefaultOps):
     divide instead of hundreds of CG iterations.  Each instance keeps the
     transform matrices and spectrum of the systems it has solved, so one
     solve builds them once."""
+    alg2_on_device = True
 
     def __init__(self):
         self._plans = {}
@@ -116,7 +141,8 @@ class DCTOps(_DefaultOps):
                 F.shape, r, float(reg_epsilon), F.dtype, F.device)
         return plan
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                    loop="auto"):
         return self._plan(F, r, reg_epsilon).solve(F), 1
 
 
@@ -131,7 +157,8 @@ class DCTRefinedOps(DCTOps):
         super().__init__()
         self.refine = int(refine)
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                    loop="auto"):
         phi = self._plan(F, r, reg_epsilon).solve_refined(F, self.refine)
         return phi, 1 + self.refine
 
@@ -141,10 +168,15 @@ class DCTFusedOps(DCTOps):
     transforms) is the hand-written kernel of ``ops/kernels/dct_solve.py``
     (one launch per solve on CUDA tensors); the t-axis products stay
     ``torch.matmul``.  The kernel module keeps the matrices of each system
-    it has solved."""
+    it has solved; the set holds the plans it has used too, so that a
+    captured graph that baked them in keeps them alive."""
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter):
-        return dct_solve(F, kernel_r(r), reg_epsilon), 1
+    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                    loop="auto"):
+        r = kernel_r(r)
+        plan = dct_solve_kernel.plan_for(F, r, reg_epsilon)
+        self._plans[("kernel", id(plan))] = plan
+        return dct_solve(F, r, reg_epsilon), 1
 
 
 class PallasOps(DCTOps):
@@ -297,14 +329,15 @@ def init_state(rho0: torch.Tensor, rhoT: torch.Tensor, Nt: int) -> FotoState:
 
 
 def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, cg_rtol, cg_maxiter,
-           ops=DEFAULT_OPS):
+           ops=DEFAULT_OPS, loop="auto"):
     """Solve A phi = div_st(mu - r q) + time-BC terms
     (reference benamou_brenier.py:26-91)."""
     dt = 1.0
     F = ops.div_st(mu - r * q, bc="N")
     rho, a = mu.select(ops.cax, 0), q.select(ops.cax, 0)
     _add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
-    return ops.stepA_solve(F, r, reg_epsilon, cg_rtol, cg_maxiter)
+    return ops.stepA_solve(F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                           loop=loop)
 
 
 def _add_time_boundary(F, rho, a, rho0, rhoT, r, dt):
@@ -320,17 +353,17 @@ def _add_time_boundary(F, rho, a, rho0, rhoT, r, dt):
 def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,
                    convergence_tol, cg_rtol=1e-6, cg_maxiter=1000,
                    verbose=False, max_it=100, ops=DEFAULT_OPS,
-                   admm_alpha=1.0) -> FotoState:
+                   admm_alpha=1.0, loop="auto") -> FotoState:
     """One full ALG2 iteration: stepA + stepB + stepC + criterion.
 
     ``admm_alpha``: ADMM over-relaxation — stepB/stepC act on
     ``alpha*grad_phi + (1-alpha)*q_prev`` instead of ``grad_phi``
     (alpha = 1.0 is the reference's exact iteration).  Must be a Python
-    float."""
+    float.  ``loop``: how a CG stepA runs its loop."""
     mu, q_prev = state.mu, state.q
 
     phi, cg_iters = _stepA(mu, q_prev, rho0, rhoT, r, reg_epsilon,
-                           cg_rtol, cg_maxiter, ops)
+                           cg_rtol, cg_maxiter, ops, loop)
 
     grad_phi = ops.grad_st(phi, bc="N")
     fused = getattr(ops, "fused_pointwise", None)
@@ -386,22 +419,82 @@ def scale_invariant_r(rho0, rhoT, r=1.0, ops=DEFAULT_OPS):
     return r * torch.maximum(ops.max(rho0), ops.max(rhoT))
 
 
+def loop_mode(loop, ops, device) -> str:
+    """The resolved ``loop=`` of a solve with ``ops``: a tiled set keeps
+    its loops on the host (its collectives stage through host memory)."""
+    if ops.host_only:
+        return "host"
+    return device_loop.resolve(loop, device)
+
+
+def _verbose_lines(verbose, max_it) -> dict:
+    """The device loop's ``trace``/``show`` that print, after each block,
+    the lines :func:`alg2_iteration` prints under ``verbose`` (none
+    without it)."""
+    if not verbose:
+        return {}
+    return dict(trace=lambda old, new: (new.crit, old.iteration + 1),
+                show=lambda crit, it: print(f"{crit} ({it}/{max_it})"))
+
+
+def run_alg2(state, rho0, rhoT, iterate, *, max_it, verbose, mode, ops,
+             key):
+    """The ALG2 loop of a single pair: ``iterate(state, rho0, rhoT, loop,
+    verbose)`` until done or ``max_it``.  ``mode="device"`` with a set
+    whose stepA has no inner loop: the device loop, its graph cached under
+    ``key``, the counters int64 tensors during the loop and ints after it,
+    and the verbose lines printed from each block's records.  Otherwise
+    one ``done`` read per iteration (a CG stepA's own loop on ``mode``)."""
+    if mode == "host" or not ops.alg2_on_device:
+        while state.iteration < max_it and not bool(state.done):
+            state = iterate(state, rho0, rhoT, mode, verbose)
+        return state
+
+    def count(n):
+        return torch.tensor(n, dtype=torch.int64, device=rho0.device)
+
+    state = state._replace(iteration=count(state.iteration),
+                           cg_iterations=count(state.cg_iterations))
+    state = device_loop.while_loop(
+        lambda s, a, b: iterate(s, a, b, "device", False),
+        lambda s, a, b: ~s.done & (s.iteration < max_it),
+        state, (rho0, rhoT), key=(key, max_it),
+        **_verbose_lines(verbose, max_it))
+    it, cg = torch.stack([state.iteration, state.cg_iterations]).tolist()
+    return state._replace(iteration=it, cg_iterations=cg)
+
+
 def alg2_loop(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
               reg_epsilon=1e-3, max_it=100, cg_rtol=1e-6,
               cg_maxiter=1000, verbose=False, ops=DEFAULT_OPS,
               admm_alpha=1.0, auto_r=False,
-              init: FotoState | None = None) -> FotoState:
-    """Run ALG2 until done or ``max_it``; ``init`` resumes a saved state."""
+              init: FotoState | None = None,
+              loop: str = "auto") -> FotoState:
+    """Run ALG2 until done or ``max_it``; ``init`` resumes a saved state.
+
+    ``loop``: "device" (the device loop; for the ``cg`` sets the CG's
+    loop), "host" or "auto" ("device" on cuda, "host" on the CPU)."""
     if auto_r:
         r = float(scale_invariant_r(rho0, rhoT, r, ops=ops))
     state = init_state(rho0, rhoT, Nt) if init is None else init
-    while state.iteration < max_it and not bool(state.done):
-        state = alg2_iteration(
-            state, rho0, rhoT, r=r, reg_epsilon=reg_epsilon,
+
+    def iterate(s, a, b, inner, show):
+        return alg2_iteration(
+            s, a, b, r=r, reg_epsilon=reg_epsilon,
             convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-            cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it, ops=ops,
-            admm_alpha=admm_alpha)
-    return state
+            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
+            admm_alpha=admm_alpha, loop=inner)
+
+    return run_alg2(state, rho0, rhoT, iterate, max_it=max_it,
+                    verbose=verbose, mode=loop_mode(loop, ops, rho0.device),
+                    ops=ops, key=_key(ops, r, reg_epsilon, convergence_tol,
+                                      admm_alpha))
+
+
+def _key(ops, r, reg_epsilon, convergence_tol, admm_alpha):
+    """The graph cache key of a FOTO loop: what its iteration bakes in."""
+    return ("foto", type(ops), getattr(ops, "refine", None), r_key(r),
+            float(reg_epsilon), float(convergence_tol), float(admm_alpha))
 
 
 solve_potential = alg2_loop
@@ -420,20 +513,42 @@ def alg2_loop_batched(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
                       reg_epsilon=1e-3, max_it=100, cg_rtol=1e-6,
                       cg_maxiter=1000, verbose=False, ops=DEFAULT_OPS,
                       admm_alpha=1.0, auto_r=False,
-                      init: FotoState | None = None) -> FotoState:
+                      init: FotoState | None = None,
+                      loop: str = "auto") -> FotoState:
     """ALG2 on a lockstep batch: ``rho0``/``rhoT`` are (B, Ny, Nx), every
     pair runs the iteration of :func:`alg2_loop` in one loop, and each
     stops on its own rule (its fields, criteria and counters then stay as
     they were).  Returns a FotoState with a leading batch axis and (B,)
-    counters, as JAX's ``vmap`` of ``solve_potential`` does."""
+    counters, as JAX's ``vmap`` of ``solve_potential`` does.  ``loop`` as
+    in :func:`alg2_loop`, through ``lockstep.run``."""
     ops = lockstep_ops(ops)
     r = lockstep_r(rho0, rhoT, r, ops, auto_r)
     state = init_state(rho0, rhoT, Nt) if init is None else init
-    return lockstep.run(state, lambda s: alg2_iteration(
-        s, rho0, rhoT, r=r, reg_epsilon=reg_epsilon,
-        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-        cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it, ops=ops,
-        admm_alpha=admm_alpha), max_it)
+    return run_lockstep(
+        state, rho0, rhoT, max_it, verbose, ops, loop,
+        _key(ops, r, reg_epsilon, convergence_tol, admm_alpha),
+        lambda s, a, b, inner, show: alg2_iteration(
+            s, a, b, r=r, reg_epsilon=reg_epsilon,
+            convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
+            admm_alpha=admm_alpha, loop=inner))
+
+
+def run_lockstep(state, rho0, rhoT, max_it, verbose, ops, loop, key,
+                 iterate):
+    """A lockstep batch's ALG2 loop through ``lockstep.run``: on the device
+    loop for the sets whose stepA has no inner loop (their verbose lines
+    printed from each block's records), else on the host with the CG's
+    loop on the device under ``loop="device"``."""
+    mode = loop_mode(loop, ops, rho0.device)
+    if mode == "device" and ops.alg2_on_device:
+        return lockstep.run(
+            state, lambda s, a, b: iterate(s, a, b, "device", False), max_it,
+            (rho0, rhoT), loop="device", key=key,
+            **_verbose_lines(verbose, max_it))
+    return lockstep.run(
+        state, lambda s, a, b: iterate(s, a, b, mode, verbose), max_it,
+        (rho0, rhoT), loop="host")
 
 
 solve_potential_batched = alg2_loop_batched
@@ -483,7 +598,7 @@ def wasserstein2(state: FotoState):
 def solve(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3, reg_epsilon=1e-3,
           max_it=100, cg_rtol=1e-6, cg_maxiter=1000, verbose=False,
           ops=DEFAULT_OPS, admm_alpha=1.0, auto_r=False,
-          init: FotoState | None = None) -> FotoResult:
+          init: FotoState | None = None, loop: str = "auto") -> FotoResult:
     """Full FOTO solve: ALG2 on the potential, then flow extraction
     (trajectory integration + luminosity), the reference's
     ``benamou_brenier.solve`` -> (u, v, m) contract."""
@@ -491,6 +606,6 @@ def solve(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3, reg_epsilon=1e-3,
         rho0, rhoT, Nt, r=r, convergence_tol=convergence_tol,
         reg_epsilon=reg_epsilon, max_it=max_it, cg_rtol=cg_rtol,
         cg_maxiter=cg_maxiter, verbose=verbose, ops=ops,
-        admm_alpha=admm_alpha, auto_r=auto_r, init=init)
+        admm_alpha=admm_alpha, auto_r=auto_r, init=init, loop=loop)
     u, v, m = flow_extract.flow_from_potential(state.phi)
     return FotoResult(u=u, v=v, m=m, state=state)

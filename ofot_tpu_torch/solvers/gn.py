@@ -5,8 +5,12 @@ Counterpart of ``ofot_tpu.solvers.gn`` (reference
 assembles a 3(wh) x 3(wh) sparse block system and solves it with a direct
 sparse LU; here the same normal-equations operator is applied matrix-free
 (two stencils and nine pointwise products per application) and solved
-with preconditioned CG (``solvers/cg.py``, whose loop runs on the host and
-reads the residual once per step).
+with preconditioned CG (``solvers/cg.py``, whose loop runs on the device
+loop on cuda, one residual read per block of K steps, and on the host on
+the CPU, one read per step).  The operator and preconditioner close over
+the pair's own gradients and spectrum; they name those tensors
+(``tensors``), which a solve hands to the CG as ``bound``, so that a
+later solve of the same shape and parameters reuses the captured graph.
 
 System (SURVEY.md §2 C5), unknowns x = (u, v, m), each (Ny, Nx):
 
@@ -89,6 +93,7 @@ def make_operator(f2, alpha, lambda_):
         data = g * (g0 * u + g1 * v + g2 * m).unsqueeze(-3)
         return smooth + data
 
+    A.tensors = (g,)
     Ny, Nx = f2.shape[-2:]
     ld = _lap_diag(Ny, Nx, f2.dtype, f2.device)
     d = torch.stack([alpha * ld, alpha * ld, lambda_ * ld])
@@ -109,6 +114,7 @@ def make_jacobi_block_preconditioner(g, d):
         t = torch.sum(g * dinv * rhs, dim=-3)
         return dinv * rhs - dinv * g * (t / denom).unsqueeze(-3)
 
+    M.tensors = (g, dinv, denom)
     return M
 
 
@@ -140,6 +146,7 @@ def make_spectral_block_preconditioner(g, coefs):
     def M(rhs):
         return transform.inverse(transform.forward(rhs) / spec)
 
+    M.tensors = (spec,)
     return M
 
 
@@ -158,13 +165,14 @@ def make_spectral_preconditioner(f2, alpha, lambda_):
 
 
 def solve_fields(f1, f2, alpha=0.1, lambda_=0.2, rtol=1e-10, maxiter=5000,
-                 precond="spectral"):
+                 precond="spectral", loop="auto"):
     """Solve the GN system on the device of ``f1``/``f2``; returns a
     GNResult of (Ny, Nx) fields.  (B, Ny, Nx) frames solve a lockstep batch
     and return (B, Ny, Nx) fields and a CGResult of (B,) tensors.
 
     ``precond``: "spectral" (DCT inverse of smoothness + mean data — a few
-    dozen CG steps) or "jacobi" (pointwise Sherman–Morrison 3x3 blocks)."""
+    dozen CG steps) or "jacobi" (pointwise Sherman–Morrison 3x3 blocks).
+    ``loop``: the CG's loop, "device", "host" or "auto" (``cg.cg``)."""
     fx, fy = image_gradients(f2)
     ft = f2 - f1
 
@@ -174,7 +182,9 @@ def solve_fields(f1, f2, alpha=0.1, lambda_=0.2, rtol=1e-10, maxiter=5000,
     b = torch.stack([-fx * ft, -fy * ft, f2 * ft], dim=-3)
 
     solver = cg_batched if f2.dim() == 3 else cg
-    res = solver(A, b, rtol=rtol, maxiter=maxiter, M=M)
+    res = solver(A, b, rtol=rtol, maxiter=maxiter, M=M, loop=loop,
+                 key=("gn", float(alpha), float(lambda_), precond),
+                 bound=A.tensors + M.tensors)
     u, v, m = res.x.unbind(-3)
     return GNResult(u=u, v=v, m=m, cg=res)
 

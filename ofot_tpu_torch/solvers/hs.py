@@ -31,9 +31,10 @@ class HSResult(NamedTuple):
 
 
 def solve_fields(f1, f2, alpha=0.1, rtol=1e-10, maxiter=5000,
-                 precond="spectral"):
+                 precond="spectral", loop="auto"):
     """Solve Horn–Schunck on the device of ``f1``/``f2``; returns the
-    (u, v) fields and the CG diagnostics."""
+    (u, v) fields and the CG diagnostics.  ``loop``: the CG's loop
+    (``cg.cg``)."""
     fx, fy = image_gradients(f2)
     ft = f2 - f1
     g = torch.stack([fx, fy])
@@ -52,5 +53,6 @@ def solve_fields(f1, f2, alpha=0.1, rtol=1e-10, maxiter=5000,
             g, torch.stack([alpha * ld, alpha * ld]))
 
     b = torch.stack([-fx * ft, -fy * ft])
-    res = cg(A, b, rtol=rtol, maxiter=maxiter, M=M)
+    res = cg(A, b, rtol=rtol, maxiter=maxiter, M=M, loop=loop,
+             key=("hs", float(alpha), precond), bound=(g, *M.tensors))
     return HSResult(u=res.x[0], v=res.x[1], cg=res)

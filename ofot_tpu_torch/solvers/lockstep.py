@@ -4,9 +4,11 @@ Counterpart of ``jax.vmap`` over the JAX package's solvers (its
 ``batch_mode="vmap"``).  Under vmap a ``lax.while_loop`` runs while any
 pair's condition holds, computes the body for every pair, and keeps a
 pair whose condition is false through a select on each carried field.
-The port's solvers loop on the host, so the lockstep form is the same
-loop over (B, ...) tensors: one "any pair still running" flag is read per
-iteration, and :func:`select_pairs` freezes the pairs that have stopped.
+The port's lockstep form is the same loop over (B, ...) tensors:
+:func:`select_pairs` freezes the pairs that have stopped, and the loop
+reads one "any pair still running" flag per block of K iterations on the
+device (``solvers/device_loop.py``) or, with ``loop="host"``, per
+iteration.
 
 A per-pair scalar that the single-pair solvers keep as a Python float
 (the ADMM penalty ``r`` under ``auto_r``) is a :class:`PerPair`.
@@ -17,6 +19,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ofot_tpu_torch.solvers import device_loop
 
 
 class PerPair:
@@ -68,16 +72,32 @@ def select_pairs(keep: torch.Tensor, new: NamedTuple, old: NamedTuple):
         for n, o in zip(new, old)))
 
 
-def run(state: NamedTuple, step: Callable, max_it: int):
+def run(state: NamedTuple, step: Callable, max_it: int, args=(), *,
+        loop: str = "auto", key=None, trace=None, show=None):
     """Advance ``state`` (fields with a leading batch axis, among them
-    ``done`` and ``iteration``) by ``step`` while any pair has
-    ``~done & iteration < max_it``; a pair that has stopped keeps every
-    field."""
+    ``done`` and ``iteration``) by ``step(state, *args)`` while any pair
+    has ``~done & iteration < max_it``; a pair that has stopped keeps every
+    field.
+
+    ``loop``: ``"device"`` runs ``device_loop.while_loop`` (blocks of K
+    iterations, one flag read a block; a captured graph cached under
+    ``key`` on cuda, with ``args`` its tensor inputs), ``"host"`` reads
+    the flag every iteration; ``"auto"`` is ``"device"`` on cuda.  With
+    ``trace``/``show`` the device form prints what the step would have
+    printed (``device_loop.while_loop``)."""
+    def running(s, *a):
+        return ~s.done & (s.iteration < max_it)
+
+    if device_loop.resolve(loop, state.done.device) == "device":
+        return device_loop.while_loop(
+            step, running, state, args,
+            key=None if key is None else ("lockstep", key, max_it),
+            trace=trace, show=show)
     while True:
-        running = ~state.done & (state.iteration < max_it)
-        if not bool(running.any()):
+        keep = running(state)
+        if not bool(keep.any()):
             return state
-        state = select_pairs(running, step(state), state)
+        state = select_pairs(keep, step(state, *args), state)
 
 
 def pair(batch: NamedTuple, i: int):

@@ -35,10 +35,14 @@ scale needs epsilon annealing (:func:`solve_annealed`, the default in
 :func:`flow`).
 
 The JAX solver runs ``check_every`` iterations in a ``fori_loop`` inside a
-``while_loop``; here the loop runs on the host and reads the marginal
-error once per block of ``check_every`` iterations (one device-to-host
-copy a block), with the last block capped at the remaining budget so that
-``max_iter`` is a hard ceiling.  ``flow`` is eager (``jax.jit`` with a
+``while_loop``; here the loop of blocks runs on the host and reads the
+marginal error once per block of ``check_every`` iterations (one
+device-to-host copy a block), with the last block capped at the remaining
+budget so that ``max_iter`` is a hard ceiling.  With ``loop="device"``
+(the default on cuda) each check block, its marginal errors and per-pair
+select included, is one replay of a captured graph
+(``solvers/device_loop.py``), the counterpart of the JAX ``fori_loop``
+block; the annealing ladder stays on the host.  ``flow`` is eager (``jax.jit`` with a
 static epsilon in JAX), so ``theta`` is always range-checked.
 
 ``solve``, ``solve_annealed`` and ``flow`` also take (B, Ny, Nx) stacks: a
@@ -57,6 +61,8 @@ from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
+
+from ofot_tpu_torch.solvers import device_loop as _loop
 
 
 class SinkhornResult(NamedTuple):
@@ -252,7 +258,7 @@ def solve(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
           init_g: torch.Tensor | None = None,
           theta: float = 1.0,
           stabilizer: str = "matmul",
-          verify: bool = True) -> SinkhornResult:
+          verify: bool = True, loop: str = "auto") -> SinkhornResult:
     """Entropic OT between grid densities ``a`` and ``b`` (both (Ny, Nx),
     nonnegative; normalized to unit mass internally), on their device and
     at their dtype.
@@ -268,6 +274,8 @@ def solve(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
     the classical iteration, and every theta in (0, 2) has the same fixed
     point.  A theta outside that range diverges to NaN potentials, which
     would pass every ``err > tol`` check vacuously, so it raises.
+    ``loop``: the check blocks as captured graphs ("device"), eagerly
+    ("host") or "auto" ("device" on cuda); the results are the same bits.
     """
     theta = _check_theta(theta)
     if stabilizer not in ("matmul", "exact"):
@@ -277,11 +285,11 @@ def solve(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
         return _solve_impl(a, b, epsilon, max_iter=max_iter, tol=tol,
                            check_every=check_every, init_f=init_f,
                            init_g=init_g, theta=theta,
-                           stabilizer=stabilizer, verify=verify)
+                           stabilizer=stabilizer, verify=verify, loop=loop)
 
 
 def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
-                init_g, theta, stabilizer, verify) -> SinkhornResult:
+                init_g, theta, stabilizer, verify, loop) -> SinkhornResult:
     dtype, device = a.dtype, a.device
     eps = torch.as_tensor(epsilon, dtype=dtype, device=device)
     Ny, Nx = a.shape[-2:]
@@ -314,36 +322,66 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
     f = torch.zeros_like(a) if init_f is None else init_f
     g = torch.zeros_like(a) if init_g is None else init_g
     pairs = a.shape[:-2]      # () for one pair, (B,) for a batch
-    err = torch.full(pairs, float("inf"), dtype=dtype, device=device)
-    # each pair's count, and which pairs have stopped
-    its = torch.zeros(pairs, dtype=torch.int64, device=device)
-    done = torch.zeros(pairs, dtype=torch.bool, device=device)
+
+    def check_block(n):
+        """``n`` iterations, both marginal errors and the per-pair select:
+        (f, g, err, its, done, it) -> the same, plus (still running,)."""
+        def fn(s, data):
+            f, g, err, its, done, it = s
+            a, b, la, lb = data
+            f_new, g_new = f, g
+            for _ in range(n):
+                f_new = (1.0 - th) * f_new + th * (la - softmin(g_new))
+                g_new = (1.0 - th) * g_new + th * (lb - softmin(f_new))
+            # both plan marginals: the over-relaxed iteration can satisfy
+            # a and miss b
+            err_a = _grid_sum(torch.abs(
+                torch.exp((f_new + softmin(g_new)) / eps) - a))
+            err_b = _grid_sum(torch.abs(
+                torch.exp((g_new + softmin(f_new)) / eps) - b))
+            it = it + n
+            # a pair that stopped at an earlier block keeps its state
+            run = ~done
+            keep = run.view(*pairs, 1, 1)
+            f = torch.where(keep, f_new, f)
+            g = torch.where(keep, g_new, g)
+            err = torch.where(run, torch.maximum(err_a, err_b), err)
+            its = torch.where(run, it, its)
+            done = done | ~(err > tol)
+            return (f, g, err, its, done, it), (~done.all(),)
+        return fn
+
+    state = (f, g, torch.full(pairs, float("inf"), dtype=dtype,
+                              device=device),
+             # each pair's count, which pairs have stopped, the count run
+             torch.zeros(pairs, dtype=torch.int64, device=device),
+             torch.zeros(pairs, dtype=torch.bool, device=device),
+             torch.zeros((), dtype=torch.int64, device=device))
+    data = (a, b, la, lb)
+    device_form = _loop.resolve(loop, device) == "device"
+    key = ("sinkhorn", stabilizer, float(epsilon), theta, float(tol))
+    runner = None
     it = 0
     while it < max_iter:
         # the last block capped at the remaining budget
         n = min(check_every, max_iter - it)
-        f_new, g_new = f, g
-        for _ in range(n):
-            f_new = (1.0 - th) * f_new + th * (la - softmin(g_new))
-            g_new = (1.0 - th) * g_new + th * (lb - softmin(f_new))
-        # both plan marginals: the over-relaxed iteration can satisfy a
-        # and miss b
-        err_a = _grid_sum(torch.abs(
-            torch.exp((f_new + softmin(g_new)) / eps) - a))
-        err_b = _grid_sum(torch.abs(
-            torch.exp((g_new + softmin(f_new)) / eps) - b))
+        if not device_form:
+            state, (running,) = check_block(n)(state, data)
+        else:
+            if runner is None or runner.iters != n:
+                if runner is not None:
+                    state = runner.result()
+                runner = _loop.runner(check_block(n), state, data,
+                                      key=(key, n), iters=n,
+                                      warmup=check_block(1))
+            (running,) = runner.replay()
         it += n
-        # a pair that stopped at an earlier block keeps its state
-        run = ~done
-        keep = run.view(*pairs, 1, 1)
-        f = torch.where(keep, f_new, f)
-        g = torch.where(keep, g_new, g)
-        err = torch.where(run, torch.maximum(err_a, err_b), err)
-        its = torch.where(run, it, its)
-        done = done | ~(err > tol)
         # the one read of a block: the JAX while_loop's condition
-        if bool(done.all()):
+        if not bool(running):
             break
+    if runner is not None:
+        state = runner.result()
+    f, g, err, its, _, _ = state
 
     # entropic cost <P, C>, gauge-free: sum_i a_i E_i with E_i the plan
     # row's conditional mean cost (the f potential and every offset of g
@@ -384,7 +422,7 @@ def solve_annealed(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
                    stage_iters: int = 50,
                    theta: float = 1.0,
                    stabilizer: str = "matmul",
-                   verify: bool = True) -> SinkhornResult:
+                   verify: bool = True, loop: str = "auto") -> SinkhornResult:
     """Epsilon-annealed Sinkhorn (Schmitzer's eps-scaling).
 
     Plain Sinkhorn's contraction rate degrades with ``osc(C)/eps``, and at
@@ -413,18 +451,18 @@ def solve_annealed(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
         res = solve(a, b, e, max_iter=stage_iters, tol=tol,
                     check_every=min(check_every, stage_iters),
                     init_f=f, init_g=g, theta=theta, stabilizer=stabilizer,
-                    verify=False)
+                    verify=False, loop=loop)
         f, g = res.f, res.g
     return solve(a, b, epsilon, max_iter=max_iter, tol=tol,
                  check_every=check_every, init_f=f, init_g=g, theta=theta,
-                 stabilizer=stabilizer, verify=verify)
+                 stabilizer=stabilizer, verify=verify, loop=loop)
 
 
 def flow(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
          max_iter: int = 500, tol=1e-4, check_every: int = 25,
          support_floor=1e-3, debias: bool = True,
          anneal: bool = True, theta: float = 1.0,
-         stabilizer: str = "matmul") -> FlowResult:
+         stabilizer: str = "matmul", loop: str = "auto") -> FlowResult:
     """Optical flow as the barycentric projection of the entropic plan:
     every source pixel maps to its plan-conditional mean target position,
 
@@ -446,7 +484,7 @@ def flow(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
     an = a / _grid_sum(a, keepdim=True)
     _solve = solve_annealed if anneal else solve
     kw = dict(max_iter=max_iter, tol=tol, check_every=check_every,
-              theta=theta, stabilizer=stabilizer)
+              theta=theta, stabilizer=stabilizer, loop=loop)
     with _f32_matmul(device):
         res = _solve(a, b, epsilon, **kw)
         Ky = _gibbs_1d(Ny, eps, dtype, device)

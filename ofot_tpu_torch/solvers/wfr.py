@@ -22,8 +22,10 @@ the FOTO machinery (Chizat, Peyré, Schmitzer, Vialard):
 
 State: ``foto.FotoState`` with mu, q of shape (4, Nt, Ny, Nx) — components
 (rho, m1, m2, sigma) where sigma = delta * zeta is the scaled source; the
-.npz checkpoint layout is unchanged.  As in the port's FOTO, the loop runs
-on the host and reads the ``done`` flag once per iteration.
+.npz checkpoint layout is unchanged.  The loop runs as the port's FOTO
+runs it (``foto.run_alg2``): on the device loop on cuda for the sets whose
+stepA has no inner loop, the k=3 fused pass and ``delta`` baked into the
+captured graph, else on the host with one ``done`` read per iteration.
 :func:`solve_potential_batched` runs a lockstep batch of pairs, as
 ``foto.solve_potential_batched`` does.
 """
@@ -34,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from ofot_tpu_torch.solvers import flow_extract, foto, lockstep
+from ofot_tpu_torch.solvers import flow_extract, foto
 
 
 class WfrResult(NamedTuple):
@@ -87,7 +89,7 @@ def G_st(phi, delta, ops=foto.DEFAULT_OPS):
 
 
 def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, delta, cg_rtol, cg_maxiter,
-           ops):
+           ops, loop="auto"):
     """Solve (r G^T G + r eps I) phi = -G^T(mu - r q) + time-BC terms.
 
     -G^T x = div_st(x[:3]) - x[3]/delta, and G^T G = -L_st + I/delta^2, so
@@ -101,26 +103,28 @@ def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, delta, cg_rtol, cg_maxiter,
     foto._add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
 
     eps_eff = reg_epsilon + 1.0 / (delta * delta)
-    return ops.stepA_solve(F, r, eps_eff, cg_rtol, cg_maxiter)
+    return ops.stepA_solve(F, r, eps_eff, cg_rtol, cg_maxiter, loop=loop)
 
 
 def alg2_iteration(state: foto.FotoState, rho0, rhoT, *, r, delta,
                    reg_epsilon, convergence_tol, cg_rtol=1e-6,
                    cg_maxiter=1000, verbose=False, max_it=100,
-                   ops=None, admm_alpha=1.0) -> foto.FotoState:
+                   ops=None, admm_alpha=1.0,
+                   loop="auto") -> foto.FotoState:
     """One unbalanced ALG2 iteration (stepA + 4-component stepB/stepC +
     extended Hamilton–Jacobi criterion).  ``ops`` defaults to a fresh
     ``dct`` set, the JAX package's default.
 
     ``admm_alpha``: ADMM over-relaxation, as in
     :func:`foto.alg2_iteration` — stepB/stepC act on
-    ``alpha*G(phi) + (1-alpha)*q_prev``.  Must be a Python float."""
+    ``alpha*G(phi) + (1-alpha)*q_prev``.  Must be a Python float.
+    ``loop``: how a CG stepA runs its loop."""
     if ops is None:
         ops = foto.stepA_ops("dct")
     mu, q_prev = state.mu, state.q
 
     phi, cg_iters = _stepA(mu, q_prev, rho0, rhoT, r, reg_epsilon, delta,
-                           cg_rtol, cg_maxiter, ops)
+                           cg_rtol, cg_maxiter, ops, loop)
     gphi = G_st(phi, delta, ops)
 
     fused = getattr(ops, "fused_pointwise", None)
@@ -167,24 +171,38 @@ def alg2_iteration(state: foto.FotoState, rho0, rhoT, *, r, delta,
 def alg2_loop(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
               reg_epsilon=1e-3, max_it=100, cg_rtol=1e-6, cg_maxiter=1000,
               verbose=False, ops=None, admm_alpha=1.0, auto_r=False,
-              init: foto.FotoState | None = None) -> foto.FotoState:
+              init: foto.FotoState | None = None,
+              loop: str = "auto") -> foto.FotoState:
     """Run unbalanced ALG2 until done or ``max_it``; ``init`` resumes a
     saved state.  ``ops`` defaults to a fresh ``dct`` set.  ``auto_r``
     rescales the ADMM penalty to the data scale (the WFR action and every
     ALG2 update are jointly 1-homogeneous in (rho, m, zeta, r), as in the
-    balanced case; see :func:`foto.scale_invariant_r`)."""
+    balanced case; see :func:`foto.scale_invariant_r`).  ``loop`` as in
+    :func:`foto.alg2_loop`."""
     if ops is None:
         ops = foto.stepA_ops("dct")
     if auto_r:
         r = float(foto.scale_invariant_r(rho0, rhoT, r, ops=ops))
     state = init_state(rho0, rhoT, Nt) if init is None else init
-    while state.iteration < max_it and not bool(state.done):
-        state = alg2_iteration(
-            state, rho0, rhoT, r=r, delta=delta, reg_epsilon=reg_epsilon,
+
+    def iterate(s, a, b, inner, show):
+        return alg2_iteration(
+            s, a, b, r=r, delta=delta, reg_epsilon=reg_epsilon,
             convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-            cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it, ops=ops,
-            admm_alpha=admm_alpha)
-    return state
+            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
+            admm_alpha=admm_alpha, loop=inner)
+
+    return foto.run_alg2(
+        state, rho0, rhoT, iterate, max_it=max_it, verbose=verbose,
+        mode=foto.loop_mode(loop, ops, rho0.device), ops=ops,
+        key=_key(ops, r, delta, reg_epsilon, convergence_tol, admm_alpha))
+
+
+def _key(ops, r, delta, reg_epsilon, convergence_tol, admm_alpha):
+    """The graph cache key of a WFR loop: what its iteration bakes in."""
+    return ("wfr", type(ops), getattr(ops, "refine", None), foto.r_key(r),
+            float(delta), float(reg_epsilon), float(convergence_tol),
+            float(admm_alpha))
 
 
 solve_potential = alg2_loop
@@ -194,18 +212,22 @@ def alg2_loop_batched(rho0, rhoT, Nt, *, delta=10.0, r=1.0,
                       convergence_tol=0.3, reg_epsilon=1e-3, max_it=100,
                       cg_rtol=1e-6, cg_maxiter=1000, verbose=False, ops=None,
                       admm_alpha=1.0, auto_r=False,
-                      init: foto.FotoState | None = None) -> foto.FotoState:
+                      init: foto.FotoState | None = None,
+                      loop: str = "auto") -> foto.FotoState:
     """Unbalanced ALG2 on a lockstep batch of (B, Ny, Nx) frames, each
     pair stopping on its own rule, as ``foto.alg2_loop_batched`` runs the
     balanced one.  ``ops`` defaults to a fresh ``dct`` set."""
     ops = foto.lockstep_ops(foto.stepA_ops("dct") if ops is None else ops)
     r = foto.lockstep_r(rho0, rhoT, r, ops, auto_r)
     state = init_state(rho0, rhoT, Nt) if init is None else init
-    return lockstep.run(state, lambda s: alg2_iteration(
-        s, rho0, rhoT, r=r, delta=delta, reg_epsilon=reg_epsilon,
-        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-        cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it, ops=ops,
-        admm_alpha=admm_alpha), max_it)
+    return foto.run_lockstep(
+        state, rho0, rhoT, max_it, verbose, ops, loop,
+        _key(ops, r, delta, reg_epsilon, convergence_tol, admm_alpha),
+        lambda s, a, b, inner, show: alg2_iteration(
+            s, a, b, r=r, delta=delta, reg_epsilon=reg_epsilon,
+            convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
+            admm_alpha=admm_alpha, loop=inner))
 
 
 solve_potential_batched = alg2_loop_batched
@@ -214,7 +236,8 @@ solve_potential_batched = alg2_loop_batched
 def solve(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
           reg_epsilon=1e-3, max_it=100, cg_rtol=1e-6, cg_maxiter=1000,
           verbose=False, ops=None, admm_alpha=1.0, auto_r=False,
-          init: foto.FotoState | None = None) -> WfrResult:
+          init: foto.FotoState | None = None,
+          loop: str = "auto") -> WfrResult:
     """Full unbalanced solve: potential -> (u, v, m) displacement flow plus
     the source/growth fields balanced OT cannot represent."""
     state = solve_potential(rho0, rhoT, Nt, delta=delta, r=r,
@@ -223,7 +246,7 @@ def solve(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
                             cg_rtol=cg_rtol, cg_maxiter=cg_maxiter,
                             verbose=verbose, ops=ops,
                             admm_alpha=admm_alpha, auto_r=auto_r,
-                            init=init)
+                            init=init, loop=loop)
     u, v, m, growth, source = _postprocess(state, delta)
     return WfrResult(u=u, v=v, m=m, growth=growth, source=source,
                      state=state)

@@ -111,3 +111,19 @@ def test_timed_loop_matches_jax_alg2_iterations():
                                      ops=jax_foto.stepA_ops("dct"))
     np.testing.assert_allclose(float(crit), float(st.crit), rtol=1e-9)
     assert int(inner) == int(st.cg_iterations) == 3
+
+
+@pytest.mark.parametrize("ops", ["pallas", "dct"])
+def test_device_and_host_loops_give_the_same_bench_line(capsys, ops):
+    """``--loop device`` (blocks of K iterations, no select) and ``--loop
+    host`` run the same iterations: the same criterion and CG count, and
+    the line names its loop."""
+    outs = {}
+    for loop in ("device", "host"):
+        assert bench.main(SMALL + ["--ops", ops, "--no-families",
+                                   "--loop", loop]) == 0
+        outs[loop] = _last_json(capsys.readouterr().out)
+        _check_foto_line(outs[loop], 1, False)
+        assert outs[loop]["loop"] == loop
+    for k in ("crit", "cg_iterations", "alg2_iterations"):
+        assert outs["device"][k] == outs["host"][k], k

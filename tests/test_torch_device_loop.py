@@ -1,0 +1,493 @@
+"""The device loop (``ofot_tpu_torch/solvers/device_loop.py``) on the CPU.
+
+On the CPU ``loop="device"`` runs the blocked, masked body eagerly: K
+iterations a block, an iteration past the stop leaving every field as it
+was, one flag read a block.  Here that form is held bitwise against the
+host loop (``loop="host"``: one read an iteration) for K in {1, 3, 8} on
+every solver loop, and against JAX's ``while_loop`` solves at float64.
+
+Tolerances against JAX, each that of the matching ``test_torch_*.py``:
+  * FOTO under the stopping rule (test_torch_foto.py's
+    ``test_solve_potential_matches_jax``): equal iterations, fields to
+    1e-9 (``dct``) or 1e-7 (``cg``, whose CG stops at rtol 1e-6 on
+    residuals that sit on the threshold within roundoff: CG steps within
+    one a stepA), criteria to 100x that relative;
+  * WFR, ``dct`` set: equal iterations, fields to 1e-9 as FOTO's;
+  * GN and HS (test_torch_gn.py, test_torch_hs.py): fields to 1e-8, CG
+    steps within 1;
+  * the pyramid (test_torch_pyramid.py): fields to 1e-6;
+  * Sinkhorn (test_torch_sinkhorn.py): equal iterations, cost to rtol 1e-9;
+  * the lockstep batch (test_torch_lockstep.py): FOTO's iteration counts
+    equal, GN's CG steps within 2, AEPE below 1e-3 against JAX's
+    ``vmap``.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from ofot_tpu.solvers import foto as jax_foto
+from ofot_tpu.solvers import gn as jax_gn
+from ofot_tpu.solvers import hs as jax_hs
+from ofot_tpu.solvers import pyramid as jax_pyramid
+from ofot_tpu.solvers import sinkhorn as jax_sk
+from ofot_tpu.solvers import wfr as jax_wfr
+from ofot_tpu.parallel import sweep as jax_sweep
+from ofot_tpu_torch.parallel import sweep
+from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.solvers import (device_loop, foto, gn, hs, lockstep,
+                                    pyramid, sinkhorn, wfr)
+
+import fixtures
+
+BLOCKS = [1, 3, 8]
+NT = 4
+FOTO_KW = dict(r=1.0, reg_epsilon=1e-2, convergence_tol=0.01, max_it=30)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Small shapes: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def block(request, monkeypatch):
+    monkeypatch.setattr(device_loop, "BLOCK", request.param)
+    device_loop.reset_stats()
+    return request.param
+
+
+def _pair(dtype=np.float64, ny=18, nx=20, **kw):
+    f1, f2 = fixtures.smooth_blob_pair(ny, nx, dtype=dtype, **kw)
+    return torch.as_tensor(f1), torch.as_tensor(f2)
+
+
+def _batch(dtype=np.float64):
+    shifts = [(2.0, 1.0), (-1.0, 2.0), (0.2, 0.0)]
+    pairs = [_pair(dtype, shift=s) for s in shifts]
+    return (torch.stack([a for a, _ in pairs]),
+            torch.stack([b for _, b in pairs]))
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equality of two values (NaN included) or of two tuples."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    if not isinstance(a, torch.Tensor):
+        return type(a) is type(b) and a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+        return torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+    return torch.equal(a, b)
+
+
+def _both(fn):
+    """``fn(loop)`` on the host loop and on the device loop."""
+    return fn("host"), fn("device")
+
+
+# ------------------------------------------------------------ FOTO, WFR
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("solver", ["dct", "cg", "pallas", "dct-fused",
+                                    "dct-refined", "cg-pallas"])
+def test_foto_device_loop_is_bitwise_the_host_loop(block, solver):
+    a, b = _pair()
+    host, dev = _both(lambda loop: foto.alg2_loop(
+        a, b, NT, ops=foto.stepA_ops(solver), loop=loop, **FOTO_KW))
+    assert _same_bits(tuple(host), tuple(dev))
+    # the criterion stopped it, in the middle of a block for K > 1
+    assert bool(dev.done) and dev.iteration < FOTO_KW["max_it"]
+    assert block == 1 or dev.iteration % block != 0
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_device_loop_counts_one_read_a_block(block):
+    a, b = _pair()
+    st = foto.alg2_loop(a, b, NT, ops=foto.stepA_ops("dct"), loop="device",
+                        **FOTO_KW)
+    s = device_loop.stats
+    assert s.slots == s.replays * block
+    assert st.iteration <= s.slots < st.iteration + block
+
+
+@pytest.mark.parametrize("block", [3, 8], indirect=True)
+@pytest.mark.parametrize("max_it", [5, 7])
+def test_max_it_in_the_middle_of_a_block(block, max_it):
+    a, b = _pair()
+    kw = dict(FOTO_KW, max_it=max_it, convergence_tol=0.0)
+    host, dev = _both(lambda loop: foto.alg2_loop(
+        a, b, NT, ops=foto.stepA_ops("dct"), loop=loop, **kw))
+    assert dev.iteration == max_it and not bool(dev.done)
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_nan_criterion_stops_both_loops_alike(block):
+    a, b = _pair()
+    a = a.clone()
+    a[3, 4] = float("nan")
+    host, dev = _both(lambda loop: foto.alg2_loop(
+        a, b, NT, ops=foto.stepA_ops("dct"), loop=loop, **FOTO_KW))
+    assert torch.isnan(dev.crit) and bool(dev.done) and dev.iteration == 1
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("algo", ["foto", "wfr"])
+def test_resume_from_init(block, algo):
+    """A state saved after 7 iterations resumes on the device loop to the
+    same bits as one uninterrupted host solve."""
+    a, b = _pair()
+    mod = foto if algo == "foto" else wfr
+    kw = dict(FOTO_KW, ops=foto.stepA_ops("dct"))
+    whole = mod.alg2_loop(a, b, NT, loop="host", **kw)
+    part = mod.alg2_loop(a, b, NT, loop="host", **dict(kw, max_it=7))
+    resumed = mod.alg2_loop(a, b, NT, loop="device", init=part, **kw)
+    assert part.iteration == 7 < whole.iteration
+    assert _same_bits(tuple(whole), tuple(resumed))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("algo", ["foto", "wfr", "lockstep"])
+def test_verbose_lines_are_the_host_loops(block, algo, capsys):
+    kw = dict(FOTO_KW, ops=foto.stepA_ops("dct"), verbose=True)
+    if algo == "lockstep":
+        a, b = _batch()
+        run = lambda loop: foto.alg2_loop_batched(a, b, NT, loop=loop, **kw)
+    else:
+        a, b = _pair()
+        mod = foto if algo == "foto" else wfr
+        run = lambda loop: mod.alg2_loop(a, b, NT, loop=loop, **kw)
+    outs = []
+    for loop in ("host", "device"):
+        run(loop)
+        outs.append(capsys.readouterr().out)
+    host, dev = outs
+    assert host.count("\n") > 5 and host == dev
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("solver", ["dct", "cg", "pallas"])
+@pytest.mark.parametrize("admm_alpha", [1.0, 1.7])
+def test_wfr_device_loop_is_bitwise_the_host_loop(block, solver,
+                                                  admm_alpha):
+    a, b = _pair()
+    host, dev = _both(lambda loop: wfr.alg2_loop(
+        a, b, NT, delta=2.5, ops=foto.stepA_ops(solver),
+        admm_alpha=admm_alpha, loop=loop, **FOTO_KW))
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+def test_auto_r_keys_on_the_pair(block):
+    """Two pairs with different auto_r penalties each give their own
+    host loop's bits (a graph bakes r in, so the key names it)."""
+    for scale in (1.0, 3.0):
+        a, b = _pair()
+        a, b = a * scale, b * scale
+        host, dev = _both(lambda loop: foto.alg2_loop(
+            a, b, NT, ops=foto.stepA_ops("dct"), auto_r=True, loop=loop,
+            **FOTO_KW))
+        assert _same_bits(tuple(host), tuple(dev))
+
+
+# ------------------------------------------------------------ CG solvers
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("precond", ["spectral", "jacobi"])
+def test_gn_device_loop_is_bitwise_the_host_loop(block, precond):
+    a, b = _pair()
+    host, dev = _both(lambda loop: gn.solve_fields(a, b, precond=precond,
+                                                   loop=loop))
+    assert host.cg.converged and dev.cg.converged
+    assert _same_bits(tuple(host.cg), tuple(dev.cg))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("precond", ["spectral", "jacobi"])
+def test_hs_device_loop_is_bitwise_the_host_loop(block, precond):
+    a, b = _pair()
+    host, dev = _both(lambda loop: hs.solve_fields(a, b, precond=precond,
+                                                   loop=loop))
+    assert _same_bits(tuple(host.cg), tuple(dev.cg))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("algo", ["gn", "hs"])
+def test_pyramid_device_loop_is_bitwise_the_host_loop(block, algo):
+    a, b = _pair(ny=40, nx=48, shift=(3.0, 4.0))
+    solve = (pyramid.solve_gn_pyramid if algo == "gn"
+             else pyramid.solve_hs_pyramid)
+    logs = {}
+
+    def run(loop):
+        logs[loop] = []
+        return solve(a, b, levels=3, cg_log=logs[loop], loop=loop)
+
+    host, dev = _both(run)
+    assert _same_bits(tuple(host), tuple(dev))
+    assert [c.iterations for c in logs["host"]] == \
+        [c.iterations for c in logs["device"]]
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+def test_cg_zero_rhs_takes_no_block(block):
+    A = lambda x: 2.0 * x
+    res = foto.cg_mod.cg(A, torch.zeros(5, dtype=torch.float64),
+                         loop="device")
+    assert res.iterations == 0 and res.converged
+    assert device_loop.stats.replays == 0
+
+
+# ------------------------------------------------------------ Sinkhorn
+
+@pytest.mark.parametrize("check_every", BLOCKS)
+@pytest.mark.parametrize("stabilizer", ["matmul", "exact"])
+def test_sinkhorn_device_loop_is_bitwise_the_host_loop(check_every,
+                                                       stabilizer):
+    a, b = _pair()
+    host, dev = _both(lambda loop: sinkhorn.solve(
+        a, b, 4.0, max_iter=130, tol=1e-6, check_every=check_every,
+        stabilizer=stabilizer, loop=loop))
+    assert 0 < dev.iterations < 130
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+@pytest.mark.parametrize("stabilizer", ["matmul", "exact"])
+def test_sinkhorn_last_block_capped_alike(stabilizer):
+    a, b = _pair()
+    device_loop.reset_stats()
+    host, dev = _both(lambda loop: sinkhorn.solve(
+        a, b, 4.0, max_iter=30, tol=0.0, check_every=25,
+        stabilizer=stabilizer, verify=False, loop=loop))
+    assert dev.iterations == 30
+    assert _same_bits(tuple(host), tuple(dev))
+    assert device_loop.stats.replays == 2 and device_loop.stats.slots == 30
+
+
+def test_sinkhorn_annealed_flow_bitwise():
+    a, b = _pair()
+    host, dev = _both(lambda loop: sinkhorn.flow(
+        a, b, 4.0, max_iter=200, tol=1e-5, check_every=5, loop=loop))
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+# ------------------------------------------------------------ lockstep
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("solver", ["dct", "pallas", "cg"])
+def test_lockstep_foto_device_loop_is_bitwise_the_host_loop(block, solver):
+    a, b = _batch()
+    host, dev = _both(lambda loop: foto.alg2_loop_batched(
+        a, b, NT, ops=foto.stepA_ops(solver), auto_r=True, loop=loop,
+        **dict(FOTO_KW, max_it=12 if solver == "cg" else 30)))
+    its = dev.iteration
+    assert solver == "cg" or its.min() < its.max()
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_lockstep_wfr_device_loop_is_bitwise_the_host_loop(block):
+    a, b = _batch()
+    host, dev = _both(lambda loop: wfr.alg2_loop_batched(
+        a, b, NT, delta=2.5, ops=foto.stepA_ops("pallas"), loop=loop,
+        **FOTO_KW))
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_lockstep_gn_device_loop_is_bitwise_the_host_loop(block):
+    a, b = _batch()
+    host, dev = _both(lambda loop: gn.solve_fields(a, b, loop=loop))
+    assert _same_bits(tuple(host.cg), tuple(dev.cg))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_lockstep_run_selects_pair_by_pair(block):
+    """A toy lockstep loop: each pair counts to its own limit."""
+    from typing import NamedTuple
+
+    class State(NamedTuple):
+        x: torch.Tensor
+        iteration: torch.Tensor
+        done: torch.Tensor
+
+    limits = torch.tensor([2, 7, 5])
+    st = State(torch.zeros(3, dtype=torch.float64),
+               torch.zeros(3, dtype=torch.int64),
+               torch.zeros(3, dtype=torch.bool))
+
+    def step(s, lim):
+        it = s.iteration + 1
+        return State(s.x + 0.5, it, it >= lim)
+
+    host, dev = (lockstep.run(st, step, 6, (limits,), loop=loop)
+                 for loop in ("host", "device"))
+    assert dev.iteration.tolist() == [2, 6, 5]
+    assert _same_bits(tuple(host), tuple(dev))
+
+
+# ------------------------------------------------------------ against JAX
+
+def _np(t):
+    return np.asarray(t)
+
+
+def _assert_state_close(ours, theirs, atol, cg_slack=0):
+    for name in ("mu", "q", "phi"):
+        np.testing.assert_allclose(getattr(ours, name).numpy(),
+                                   _np(getattr(theirs, name)), rtol=0,
+                                   atol=atol, err_msg=name)
+    np.testing.assert_allclose(float(ours.crit), float(theirs.crit),
+                               rtol=100 * atol)
+    assert ours.iteration == int(theirs.iteration)
+    assert abs(ours.cg_iterations - int(theirs.cg_iterations)) <= cg_slack
+    assert bool(ours.done) == bool(theirs.done)
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+@pytest.mark.parametrize("solver,jax_ops,atol", [
+    ("dct", jax_foto.DCT_OPS, 1e-9), ("cg", jax_foto.DEFAULT_OPS, 1e-7)])
+def test_foto_device_loop_matches_jax_while_loop(block, solver, jax_ops,
+                                                 atol):
+    a, b = _pair()
+    kw = dict(r=1.0, reg_epsilon=1e-2, convergence_tol=0.1, max_it=40,
+              admm_alpha=1.7)
+    ours = foto.alg2_loop(a, b, NT, ops=foto.stepA_ops(solver),
+                          loop="device", **kw)
+    theirs = jax_foto.solve_potential(jnp.asarray(a.numpy()),
+                                      jnp.asarray(b.numpy()), NT,
+                                      ops=jax_ops, **kw)
+    assert 1 < ours.iteration < 40
+    _assert_state_close(ours, theirs, atol,
+                        cg_slack=ours.iteration if solver == "cg" else 0)
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+def test_wfr_device_loop_matches_jax_while_loop(block):
+    a, b = _pair()
+    ours = wfr.alg2_loop(a, b, NT, delta=2.5, ops=foto.stepA_ops("dct"),
+                         loop="device", **FOTO_KW)
+    theirs = jax_wfr.solve_potential(jnp.asarray(a.numpy()),
+                                     jnp.asarray(b.numpy()), NT, delta=2.5,
+                                     **FOTO_KW)
+    _assert_state_close(ours, theirs, 1e-9)
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+@pytest.mark.parametrize("algo", ["gn", "hs"])
+def test_gn_hs_device_loop_matches_jax(block, algo):
+    a, b = _pair()
+    ours = (gn if algo == "gn" else hs).solve_fields(a, b, loop="device")
+    theirs = (jax_gn if algo == "gn" else jax_hs).solve_fields(
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+    assert abs(ours.cg.iterations - int(theirs.cg.iterations)) <= 1
+    assert ours.cg.converged and bool(theirs.cg.converged)
+    np.testing.assert_allclose(ours.u.numpy(), _np(theirs.u), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(ours.v.numpy(), _np(theirs.v), rtol=0,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+def test_pyramid_device_loop_matches_jax(block):
+    a, b = _pair(ny=40, nx=48, shift=(3.0, 4.0))
+    u, v = pyramid.solve_hs_pyramid(a, b, levels=3, loop="device")
+    ju, jv = jax_pyramid.solve_hs_pyramid(jnp.asarray(a.numpy()),
+                                          jnp.asarray(b.numpy()), levels=3)
+    np.testing.assert_allclose(u.numpy(), _np(ju), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), _np(jv), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("stabilizer", ["matmul", "exact"])
+def test_sinkhorn_device_loop_matches_jax(stabilizer):
+    a, b = _pair()
+    ours = sinkhorn.solve(a, b, 4.0, max_iter=130, tol=1e-6, check_every=5,
+                          stabilizer=stabilizer, loop="device")
+    theirs = jax_sk.solve(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                          4.0, max_iter=130, tol=1e-6, check_every=5,
+                          stabilizer=stabilizer)
+    assert ours.iterations == int(theirs.iterations)
+    np.testing.assert_allclose(float(ours.cost), float(theirs.cost),
+                               rtol=1e-9)
+
+
+@pytest.mark.parametrize("block", [3], indirect=True)
+@pytest.mark.parametrize("algo", ["foto", "GN"])
+def test_lockstep_device_loop_matches_jax_vmap(block, algo, monkeypatch):
+    monkeypatch.setattr(device_loop, "resolve", lambda loop, dev: "device")
+    f1s, f2s = (t.numpy() for t in _batch())
+    params = ({"foto_params": dict(Nt=NT, r=1.0, convergence_tol=0.1,
+                                   reg_epsilon=1e-2, max_it=16,
+                                   stepA_solver="dct")}
+              if algo == "foto" else
+              {"gn_params": dict(alpha=0.1, lambda_=0.2)})
+    u, v, _, diag = sweep.solve_batch_full(
+        algo, f1s, f2s, None, batch_mode="vmap", device="cpu", **params)
+    assert device_loop.stats.replays > 0
+    ju, jv, _, jdiag = jax_sweep.solve_batch_full(
+        algo, f1s, f2s, None, batch_mode="vmap", **params)
+    if algo == "foto":
+        np.testing.assert_array_equal(diag["iterations"],
+                                      np.asarray(jdiag["iterations"]))
+    else:
+        assert np.abs(diag["inner_iterations"]
+                      - np.asarray(jdiag["inner_iterations"])).max() <= 2
+    aepe = np.sqrt((u.numpy() - _np(ju)) ** 2
+                   + (v.numpy() - _np(jv)) ** 2).mean(axis=(1, 2))
+    assert aepe.max() < 1e-3
+
+
+# ------------------------------------------------------------ the module
+
+def test_loop_keyword_resolves_by_device():
+    assert device_loop.resolve("auto", "cpu") == "host"
+    assert device_loop.resolve("auto", "cuda") == "device"
+    assert device_loop.resolve("device", "cpu") == "device"
+    with pytest.raises(ValueError, match="loop="):
+        device_loop.resolve("graph", "cpu")
+
+
+def test_tiled_sets_keep_their_loops_on_the_host():
+    assert foto.loop_mode("device", ShardedOps(None), "cuda") == "host"
+    assert foto.loop_mode("auto", foto.stepA_ops("pallas"),
+                          "cuda") == "device"
+
+
+def test_device_loop_carries_tensors_only():
+    from typing import NamedTuple
+
+    class S(NamedTuple):
+        x: torch.Tensor
+        n: int
+
+    with pytest.raises(TypeError, match="tensors only"):
+        device_loop.while_loop(lambda s: s, lambda s: torch.tensor(True),
+                               S(torch.zeros(2), 0))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("n", [1, 7, 16])
+def test_fori_loop_runs_exactly_n(block, n):
+    from typing import NamedTuple
+
+    class S(NamedTuple):
+        x: torch.Tensor
+
+    out = device_loop.fori_loop(lambda s, c: S(s.x * c + 1.0),
+                                S(torch.ones(3, dtype=torch.float64)), n,
+                                (torch.full((3,), 1.5, dtype=torch.float64),))
+    want = torch.ones(3, dtype=torch.float64)
+    for _ in range(n):
+        want = want * 1.5 + 1.0
+    assert _same_bits(out.x, want)
+    assert device_loop.stats.slots == n

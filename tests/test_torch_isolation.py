@@ -58,6 +58,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.solvers.otgrad\n"
         "import ofot_tpu_torch.solvers.implicit\n"
         "import ofot_tpu_torch.solvers.lockstep\n"
+        "import ofot_tpu_torch.solvers.device_loop\n"
         "import ofot_tpu_torch.utils.trace\n"
         "import ofot_tpu_torch.utils.colorwheel\n"
         "import ofot_tpu_torch.cli.pipeline, ofot_tpu_torch.cli.data_diff\n"
@@ -79,6 +80,24 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_device_loop_import_touches_no_card_and_no_jax():
+    """The device loop builds its streams and graphs at a solve's first
+    capture, never at import: importing it initialises no CUDA context and
+    pulls in neither JAX nor the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "before = set(sys.modules)\n"
+        "import ofot_tpu_torch.solvers.device_loop as d\n"
+        "bad = sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'triton'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not d._cache and not d._side_streams\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -29,6 +29,14 @@ all-NaN flow warps to NaN pixels on the card, with no device-side assert.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
 4-byte copies otherwise).
+
+The solver loops run on the device loop by default on the card (captured
+graphs of K iterations, ``solvers/device_loop.py``): each is held bitwise
+against its host loop, a host read inside a captured body raises, and
+wherever a test counted one launch an iteration it holds the replay
+relation instead: launches = warm-up launches + replayed launches,
+replayed launches = the slots of the replays, and iterations <= slots <=
+iterations + (K - 1) a loop.
 """
 
 import numpy as np
@@ -41,6 +49,26 @@ from ofot_tpu_torch.ops.kernels import fused_pointwise as fp
 from ofot_tpu_torch.ops.kernels import projection as pk
 
 RNG = np.random.default_rng(37)
+
+
+def _reset_counts():
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.solvers import device_loop
+    kernels.reset_launch_counts()
+    device_loop.reset_stats()
+
+
+def _assert_launch_relation(launches, kernel, iterations):
+    """The device loop's launch relation for ``kernel``, launched once an
+    iteration, and no launch of any other kernel."""
+    from ofot_tpu_torch.solvers import device_loop
+    s = device_loop.stats
+    replayed = s.graph_launches.get(kernel, 0)
+    assert launches[kernel] == s.eager_launches.get(kernel, 0) + replayed
+    assert replayed == s.kernel_slots.get(kernel, 0)
+    assert iterations <= replayed <= iterations + s.kernel_spare.get(kernel,
+                                                                     0)
+    assert sum(launches.values()) == launches[kernel]
 
 
 @pytest.fixture
@@ -346,8 +374,8 @@ def _blob_pairs(n, ny, nx):
 @pytest.mark.cuda
 def test_map_mode_bitwise_equals_single_pair_on_card(cuda_device):
     """The sweep's map mode on the card: each pair equals the CLI's
-    single-pair solve bitwise, and the fused kernel launches once per ALG2
-    iteration of the batch."""
+    single-pair solve bitwise, and the fused kernel's launches hold the
+    device loop's relation to the batch's ALG2 iterations."""
     from ofot_tpu_torch.ops import kernels
     from ofot_tpu_torch.parallel import sweep
     from ofot_tpu_torch.solvers import foto
@@ -355,14 +383,14 @@ def test_map_mode_bitwise_equals_single_pair_on_card(cuda_device):
     f1s, f2s = _blob_pairs(3, 48, 64)
     params = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=6,
                   admm_alpha=1.7)
-    kernels.reset_launch_counts()
+    _reset_counts()
     u, v, m, diag = sweep.solve_batch_full(
         "foto", f1s, f2s, foto_params=dict(params, Nt=4),
         device=cuda_device)
     launches = kernels.launch_counts()
     assert u.device.type == "cuda"
-    assert launches["fused_pointwise"] == int(diag["iterations"].sum())
-    assert sum(launches.values()) == launches["fused_pointwise"]
+    _assert_launch_relation(launches, "fused_pointwise",
+                            int(diag["iterations"].sum()))
     for i in range(3):
         one = foto.solve(torch.as_tensor(f1s[i], device=cuda_device),
                          torch.as_tensor(f2s[i], device=cuda_device), 4,
@@ -376,7 +404,8 @@ def test_map_mode_bitwise_equals_single_pair_on_card(cuda_device):
 def test_pipeline_run_on_card(cuda_device, tmp_path):
     """A tiny per-sequence sweep on the card (the pipeline's default
     platform) writes every artifact, runs FOTO and WFR on the fused kernel
-    and launches it once per ALG2 iteration."""
+    and its launches hold the device loop's relation to the ALG2
+    iterations."""
     import json
 
     from ofot_tpu_torch.cli import pipeline
@@ -389,7 +418,7 @@ def test_pipeline_run_on_card(cuda_device, tmp_path):
         d.mkdir(parents=True)
         image.save_grayscale(f1s[i], str(d / "frame10.png"))
         image.save_grayscale(f2s[i], str(d / "frame11.png"))
-    kernels.reset_launch_counts()
+    _reset_counts()
     assert pipeline.main([
         "run", "--data-root", str(tmp_path / "data"), "--results",
         str(tmp_path / "res"), "--datasets", "middlebury-1", "--algos",
@@ -409,8 +438,7 @@ def test_pipeline_run_on_card(cuda_device, tmp_path):
         assert row["foto"]["stepA_solver"] == row["WFR"]["stepA_solver"] \
             == "pallas"
         iterations += row["foto"]["iterations"] + row["WFR"]["iterations"]
-    assert launches["fused_pointwise"] == iterations
-    assert sum(launches.values()) == iterations
+    _assert_launch_relation(launches, "fused_pointwise", iterations)
 
 
 @pytest.mark.cuda
@@ -485,7 +513,7 @@ def test_batched_dct_solve_on_card(cuda_device):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 5e-6 * float(
         want.abs().max())
-    p = ds._plan_for(F, r, eps)
+    p = ds.plan_for(F, r, eps)
     Fz = ds.t_forward(F, p)
     enqueue, out = ds.prepare_launch(Fz, p, r)
     enqueue()
@@ -517,8 +545,9 @@ def test_batched_cg_operator_on_card(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_lockstep_solve_batch_full_on_card(cuda_device):
-    """The lockstep batch on the card: FOTO (fused kernel, one launch per
-    lockstep iteration) and GN against map mode on the same pairs."""
+    """The lockstep batch on the card: FOTO (fused kernel, the device
+    loop's launch relation to the lockstep iterations) and GN against map
+    mode on the same pairs."""
     from ofot_tpu_torch.ops import kernels
     from ofot_tpu_torch.parallel import sweep
     a = RNG.uniform(0.1, 0.9, (3, 24, 28)).astype(np.float32)
@@ -526,11 +555,11 @@ def test_lockstep_solve_batch_full_on_card(cuda_device):
     b[1] = np.roll(a[1], (-2, 1), axis=(0, 1))
     fp_ = dict(Nt=4, r=1.0, convergence_tol=0.01, reg_epsilon=1e-2,
                max_it=40, admm_alpha=1.7)
-    kernels.reset_launch_counts()
+    _reset_counts()
     u, v, m, d = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
                                         batch_mode="vmap", device="cuda")
-    assert kernels.launch_counts()["fused_pointwise"] == \
-        int(d["iterations"].max())
+    _assert_launch_relation(kernels.launch_counts(), "fused_pointwise",
+                            int(d["iterations"].max()))
     um, vm, mm, dm = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
                                             device="cuda")
     for i in range(3):
@@ -558,3 +587,114 @@ def test_warp_of_an_all_nan_flow_on_the_card(cuda_device):
     # the context still works after it
     z = torch.zeros_like(f1)
     assert torch.equal(warp.apply_flow(f1, z, z), f1)
+
+
+def _same_bits(a, b):
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _loop_paths(device):
+    """name -> run(loop) -> (fields, counters) at a small size."""
+    from ofot_tpu_torch.solvers import foto, gn, sinkhorn, wfr
+    f1s, f2s = (torch.as_tensor(x, device=device)
+                for x in _blob_pairs(3, 40, 48))
+    a, b = f1s[0], f2s[0]
+    alg2 = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=60,
+                admm_alpha=1.7)
+
+    def state(st):
+        return ((st.mu, st.q, st.phi, st.crit),
+                (st.iteration, st.cg_iterations, st.done))
+
+    def sk(stab):
+        def run(loop):
+            r = sinkhorn.solve(a, b, 20.0, max_iter=300, tol=1e-5,
+                               stabilizer=stab, loop=loop)
+            return (r.f, r.g, r.cost, r.marginal_error), (r.iterations,)
+        return run
+
+    def gn_run(loop):
+        r = gn.solve_fields(a, b, loop=loop)
+        return (r.u, r.v, r.m, r.cg.residual), (r.cg.iterations,)
+
+    return {
+        "foto-pallas": lambda loop: state(foto.alg2_loop(
+            a, b, 8, ops=foto.stepA_ops("pallas"), loop=loop, **alg2)),
+        "foto-dct-fused": lambda loop: state(foto.alg2_loop(
+            a, b, 8, ops=foto.stepA_ops("dct-fused"), loop=loop, **alg2)),
+        "wfr-pallas": lambda loop: state(wfr.alg2_loop(
+            a, b, 8, delta=2.5, ops=foto.stepA_ops("pallas"), loop=loop,
+            **alg2)),
+        "gn": gn_run,
+        "sinkhorn-matmul": sk("matmul"),
+        "sinkhorn-exact": sk("exact"),
+        "lockstep-foto": lambda loop: state(foto.alg2_loop_batched(
+            f1s, f2s, 8, ops=foto.stepA_ops("pallas"), loop=loop, **alg2)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["foto-pallas", "foto-dct-fused",
+                                  "wfr-pallas", "gn", "sinkhorn-matmul",
+                                  "sinkhorn-exact", "lockstep-foto"])
+def test_device_loop_is_bitwise_the_host_loop_on_card(cuda_device, path):
+    """Captured loops (a cold run that captures, a warm one that replays
+    the cached graph) give the host loop's fields bitwise and its
+    counters."""
+    run = _loop_paths(cuda_device)[path]
+    host_fields, host_counts = run("host")
+    for _ in range(2):
+        fields, counts = run("device")
+        assert all(map(_same_bits, host_fields, fields))
+        for h, d in zip(host_counts, counts):
+            assert torch.equal(torch.as_tensor(h), torch.as_tensor(d))
+
+
+@pytest.mark.cuda
+def test_capture_with_a_host_read_raises_on_card(cuda_device):
+    """A body that reads the card on the host cannot be captured: the
+    device loop raises and does not fall back to the host loop."""
+    from typing import NamedTuple
+
+    from ofot_tpu_torch.solvers import device_loop
+
+    class S(NamedTuple):
+        x: torch.Tensor
+
+    def step(s):
+        return S(s.x + float(s.x.sum()))          # a host read
+
+    with pytest.raises(RuntimeError, match="no host fallback"):
+        device_loop.while_loop(step, lambda s: s.x.sum() < 1e6,
+                               S(torch.ones(4, device=cuda_device)))
+    # the card still works after the failed capture
+    assert float(torch.ones(3, device=cuda_device).sum()) == 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,kernel", [("pallas", "fused_pointwise"),
+                                           ("dct-fused", "dct_solve")])
+def test_device_loop_launch_relation_on_card(cuda_device, solver, kernel):
+    """launches = warm-up launches + replays x K (one launch an
+    iteration), and iterations <= replays x K < iterations + K; a warm
+    solve replays the cached graph without a capture."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.solvers import device_loop, foto
+    a, b = (torch.as_tensor(x[0], device=cuda_device)
+            for x in _blob_pairs(1, 40, 48))
+    kw = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=60,
+              admm_alpha=1.7, loop="device")
+    device_loop.clear_cache()          # an earlier test cached this graph
+    for cold in (True, False):
+        _reset_counts()
+        st = foto.alg2_loop(a, b, 8, ops=foto.stepA_ops(solver), **kw)
+        s, K = device_loop.stats, device_loop.BLOCK
+        launches = kernels.launch_counts()
+        assert s.captures == (1 if cold else 0)
+        assert launches[kernel] == s.eager_launches.get(kernel, 0) \
+            + s.replays * K
+        assert s.eager_launches.get(kernel, 0) == (1 if cold else 0)
+        assert st.iteration <= s.replays * K < st.iteration + K
+        _assert_launch_relation(launches, kernel, st.iteration)
