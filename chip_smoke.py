@@ -148,6 +148,24 @@ Phases, each printed with its elapsed seconds:
    walls and ms per iteration (CG step) of both loops, capture ms, K and
    replays, a profiler window's idle share and the peak memory of each,
    then sweeps K over DEVICE_LOOP_BLOCKS on FOTO ``pallas``.
+20. examples and tools: the five examples (``ofot_tpu_torch.examples``:
+   quickstart, unbalanced_flow, wasserstein, differentiable_ot,
+   sharded_solve) with ``--platform cuda``, and the two tools of the
+   differentiable layer: ``w2_gradient_flow`` at its defaults (48, 12
+   steps; S strictly decreasing; the CPU run its first W2_CPU_STEPS
+   steps) and ``tune_gn`` at float64 on a
+   Middlebury-2 layout written here (TUNE_SHIFTS: seeded textures at
+   320x240 with a constant ground truth as ``.flo``; TUNE_STEPS Adam
+   steps).  Each run with the launch counts set to 0 just before and
+   read just after, then each again on the CPU (three processes at
+   once, CPU_GROUPS): every returned number within
+   EXAMPLE_TOLERANCES / TOOL_RTOL of the CPU run (the CPU tests'
+   bounds; tune_gn's parameters and EE 1e-6), ``fused_pointwise``
+   launched by unbalanced_flow's WFR (``auto`` = ``pallas``) by the
+   replay relation, no kernel elsewhere (sharded_solve's one rank
+   reports its own counts, a 1x1 mesh on the card, a 2x2 gloo world of
+   4 ranks on the CPU).  Each run's card and CPU seconds, launches and
+   peak memory are logged; #1's record gains ``examples_launches``.
 
 On the card every solver loop runs on the device loop by default, so
 wherever a phase held a kernel's launches to the iterations (phases 4, 8,
@@ -2866,6 +2884,232 @@ def device_loop_phase(rho):
     return out
 
 
+# ---------------------------------------------------- examples and tools
+
+EXAMPLES = ("quickstart", "unbalanced_flow", "wasserstein",
+            "differentiable_ot", "sharded_solve")
+# card against CPU, per returned number: a relative tolerance, or
+# ("count", n) for a count within n; the CPU tests' bounds
+# (tests/test_torch_examples.py): 1e-3, WFR 2%, the float32 Sinkhorn
+# regime's entropic W2 3% and descent S 1%, GN's float32 CG count 25
+# (its spread on the CPU under one-ulp changes of the frames: 175-198)
+EXAMPLE_TOLERANCES = {
+    "quickstart": dict(foto_iterations=("count", 0), foto_crit=1e-3,
+                       foto_IE=1e-3, foto_mean_u=1e-3,
+                       gn_cg_iterations=("count", 25), gn_IE=1e-3),
+    "unbalanced_flow": dict(foto_IE=1e-3, foto_mean_u=1e-3, wfr_IE=2e-2,
+                            wfr_mean_u=2e-2, created=2e-2,
+                            peak_growth=2e-2, true_gain=1e-6),
+    "wasserstein": dict(dynamic=1e-3, entropic=3e-2),
+    "differentiable_ot": dict(S=1e-4, grad_min=2e-3, grad_max=2e-3,
+                              steps=1e-2, after=1e-2),
+    "sharded_solve": dict(iterations=("count", 0), crit=1e-3),
+}
+# tune_gn's Middlebury-2 layout: sequence -> (dy, dx), at the sweep's
+# 320x240; Adam steps
+TUNE_SHIFTS = {"Drift": (1, 2), "Sway": (-2, 1), "Tilt": (2, -1)}
+TUNE_STEPS = 3
+TOOL_RTOL = {"w2_gradient_flow": 2e-4, "tune_gn": 1e-6}
+# the CPU run of w2_gradient_flow takes its first W2_CPU_STEPS steps (the
+# same iterates as the card's first steps: its float32 Sinkhorn solves
+# are slow on a CPU, a minute for the 12 default steps)
+W2_CPU_STEPS = 4
+
+
+def _within(label, key, got, want, rule):
+    """``got`` (card) against ``want`` (CPU) by ``rule``, item by item ->
+    a description of the mismatch, or None."""
+    for g, w in zip(np.atleast_1d(got), np.atleast_1d(want)):
+        ok = (abs(g - w) <= rule[1] if isinstance(rule, tuple)
+              else abs(g - w) <= rule * abs(w))
+        if not (ok and np.isfinite(g)):
+            return (f"{label}: {key} {got} on the card against {want} on "
+                    f"the CPU ({rule})")
+    return None
+
+
+def _brief(res):
+    """A run's numbers, unrounded, for the log."""
+    if isinstance(res, dict):
+        res = {k: v for k, v in res.items()
+               if isinstance(v, (int, float, list))}
+    return json.dumps(res)
+
+
+def _measured(label, run, device):
+    """``run()`` with the launch counts and the peak memory reset just
+    before -> (result, seconds, launches, loop stats, peak MiB); its
+    prints go to a buffer shown only on failure."""
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = run()
+    except Exception:
+        print(buf.getvalue())
+        raise
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = ((torch.cuda.max_memory_allocated() - held) / 2 ** 20 if cuda
+            else 0.0)
+    return (out, seconds, kernels.launch_counts(),
+            copy.deepcopy(device_loop.stats), peak, buf.getvalue())
+
+
+def write_tune_data(root: Path) -> Path:
+    """A Middlebury-2 layout of seeded textures at 320x240, each moved by
+    its TUNE_SHIFTS entry, with the constant ground truth as ``.flo``."""
+    _, h, w = SHAPE
+    for i, (name, (dy, dx)) in enumerate(TUNE_SHIFTS.items()):
+        f0, f1 = textured_pair(h, w, shift=(dy, dx), seed=SEED + 40 + i)
+        seq = root / "middlebury-2" / "other-data-gray" / name
+        gt = root / "middlebury-2" / "other-gt-flow" / name
+        seq.mkdir(parents=True)
+        gt.mkdir(parents=True)
+        image.save_grayscale(f0, str(seq / "frame10.png"))
+        image.save_grayscale(f1, str(seq / "frame11.png"))
+        flo.write_flo(w, h, np.full(h * w, float(dx)),
+                      np.full(h * w, float(dy)), str(gt / "flow10.flo"))
+    return root
+
+
+def _w2_flow(platform, steps=()):
+    from ofot_tpu_torch.tools import w2_gradient_flow
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if w2_gradient_flow.main(["--platform", platform, *steps]) != 0:
+            raise AssertionError("w2_gradient_flow exited with an error")
+    print(out.getvalue(), end="")
+    line = out.getvalue().strip().splitlines()[-1]
+    return json.loads(line)["S_trajectory"]
+
+
+def _tune(root: Path, platform):
+    from ofot_tpu_torch.tools import tune_gn
+    names, groups = tune_gn.load_groups(str(root / "middlebury-2"),
+                                        platform)
+    res = tune_gn.tune(groups, names, TUNE_STEPS, 0.15, platform)
+    tune_gn.report(names, res)
+    return res
+
+
+def _phase20_runs(tune_root: Path) -> dict:
+    """name -> (run(platform, *args) -> its numbers, tolerance)."""
+    import importlib
+    runs = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"ofot_tpu_torch.examples.{name}")
+        runs[name] = (lambda p, mod=mod: mod.main(["--platform", p]),
+                      EXAMPLE_TOLERANCES[name])
+    runs["w2_gradient_flow"] = (_w2_flow, TOOL_RTOL["w2_gradient_flow"])
+    runs["tune_gn"] = (lambda p: _tune(tune_root, p), TOOL_RTOL["tune_gn"])
+    return runs
+
+
+# phase 20's CPU runs, in three processes at once after the card runs
+# (CPU runs take 3-30x the card's time: each is best on a few threads);
+# sharded_solve starts its own four single-thread ranks
+CPU_GROUPS = (("sharded_solve",),
+              ("w2_gradient_flow", "differentiable_ot", "wasserstein"),
+              ("tune_gn", "quickstart", "unbalanced_flow"))
+CPU_GROUP_THREADS = 2
+CPU_ARGS = {"w2_gradient_flow": (["--steps", str(W2_CPU_STEPS)],)}
+
+
+def cpu_runs(names, tune_root: str, out: str) -> None:
+    """The CPU runs of ``names`` in this process, saved to ``out`` as
+    name -> (numbers, seconds)."""
+    torch.set_num_threads(CPU_GROUP_THREADS)
+    runs = _phase20_runs(Path(tune_root))
+    done = {}
+    for name in names:
+        run = runs[name][0]
+        res = _measured(name, lambda: run("cpu", *CPU_ARGS.get(name, ())),
+                        "cpu")
+        done[name] = res[:2]
+    torch.save(done, out)
+
+
+def _cpu_groups(tune_root: Path, workdir: Path) -> dict:
+    """Every CPU run, CPU_GROUPS in processes of their own at once ->
+    name -> (numbers, seconds)."""
+    root = Path(__file__).resolve().parent
+    procs = []
+    for i, names in enumerate(CPU_GROUPS):
+        out = workdir / f"cpu_runs{i}.pt"
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.cpu_runs(sys.argv[2:-2], "
+                "sys.argv[-2], sys.argv[-1])")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code, str(root), *names, str(tune_root),
+             str(out)], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    done = {}
+    for proc, out in procs:
+        text, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 20 CPU runs failed:\n{text}")
+        done.update(torch.load(out, weights_only=False))
+    return done
+
+
+def examples_phase(workdir: Path):
+    """Phase 20: the port's five examples and its two tools on the card,
+    then each again on the CPU (CPU_GROUPS at once), card against CPU;
+    seconds, launches of each kernel and peak memory (over what was held
+    before) of each card run.  Returns the card runs' launches of #1."""
+    tune_root = write_tune_data(workdir / "tune")
+    runs = _phase20_runs(tune_root)
+    cards = {name: _measured(name, lambda: run(CARD), CARD)
+             for name, (run, _) in runs.items()}
+    t0 = time.perf_counter()
+    cpus = _cpu_groups(tune_root, workdir)
+    _log(f"  the CPU runs, {len(CPU_GROUPS)} processes at once: "
+         f"{time.perf_counter() - t0:.2f} s")
+    fused, bad = {}, []
+    for name, (_, tol) in runs.items():
+        res, seconds, launches, loops, peak, text = cards[name]
+        cpu, cpu_s = cpus[name]
+        if name == "sharded_solve":        # its one rank ran the solve
+            launches, peak = res["launches"], res["peak_mib"] or 0.0
+            loops = None
+        expect = ({"fused_pointwise": res["wfr_iterations"]}
+                  if name == "unbalanced_flow" else {})
+        check_launches(f"example {name}", launches, expect, loops=loops)
+        if name == "w2_gradient_flow":
+            if not all(b < a for a, b in zip(res, res[1:])):
+                bad.append(f"{name}: S not strictly decreasing: {res}")
+            checks = [("S_trajectory", res[:len(cpu)], cpu, tol)]
+        elif name == "tune_gn":
+            checks = [(k, res[k], cpu[k], tol)
+                      for k in ("alpha", "lambda_", "ee_default",
+                                "ee_tuned")]
+        else:
+            checks = [(k, res[k], cpu[k], rule) for k, rule in tol.items()]
+        bad += filter(None, (_within(name, *c) for c in checks))
+        fused[name] = launches["fused_pointwise"]
+        _log(f"  {name}: card {_brief(res)}; CPU {_brief(cpu)}")
+        shown = {k: v for k, v in launches.items() if v}
+        _log(f"  {name}: card {seconds:.2f} s, CPU {cpu_s:.2f} s; "
+             f"launches {shown or 0} (fused_pointwise "
+             f"{launches['fused_pointwise']}); peak memory "
+             f"{peak:.1f} MiB; card lines: "
+             + " | ".join(ln.strip() for ln in text.splitlines()[-3:]))
+    if not fused["unbalanced_flow"] > 0:
+        bad.append("unbalanced_flow launched no fused_pointwise on the "
+                   "card")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return fused
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -2975,6 +3219,9 @@ def main() -> int:
         with Phase("19 device loops"):
             device_loop_phase(rho)
 
+        with Phase("20 examples and tools"):
+            example_launches = examples_phase(workdir)
+
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path
     every_run = [solve, *paths.values()]
@@ -3008,7 +3255,8 @@ def main() -> int:
         dict(entry("fused_pointwise", "fused_pointwise.cu", 224,
                    solve["launches"]["fused_pointwise"], worst, t),
              bench_launches=bench_launches["auto"]["fused_pointwise"],
-             gspmd_launches=gspmd_launches["fused_pointwise"]),
+             gspmd_launches=gspmd_launches["fused_pointwise"],
+             examples_launches=example_launches),
         # the library call is the port's whole cuBLAS stepA, so the whole
         # dct-fused stepA (t products + kernel) stands beside it
         dict(entry("dct_solve", "dct_solve.cu", 355,

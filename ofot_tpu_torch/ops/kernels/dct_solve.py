@@ -122,7 +122,14 @@ def slice_solve_reference(Fz: torch.Tensor, p: Plan,
 
 def dct_solve_reference(F: torch.Tensor, r, reg_epsilon) -> torch.Tensor:
     """Plain torch version of :func:`dct_solve`: the t-forward product, the
-    per-slice body with ``torch.matmul``, the t-inverse product."""
+    per-slice body with ``torch.matmul``, the t-inverse product.  A batch
+    on the CPU goes pair by pair, each pair as a single solve, so that it
+    gets a single solve's bits (``solvers/dct.py:_transform`` says why)."""
+    if F.dim() == 4 and F.device.type == "cpu":
+        rs = _per_pair(r)
+        return torch.stack([dct_solve_reference(
+            f, r if rs is None else float(rs[i]), reg_epsilon)
+            for i, f in enumerate(F)])
     p = plan_for(F, r, reg_epsilon)
     return t_inverse(slice_solve_reference(t_forward(F, p), p, _per_pair(r)),
                      p)

@@ -224,8 +224,39 @@ def _idct_fft_last(y: torch.Tensor, tw=None) -> torch.Tensor:
 
 # ------------------------------------------------------ routed transforms
 
-def _transform(x: torch.Tensor, mat: torch.Tensor, axis: int) -> torch.Tensor:
-    """Apply an (n, n) transform matrix along one axis of a field."""
+def _per_pair(fn, x: torch.Tensor, lead: int) -> torch.Tensor:
+    """``fn`` on each pair of a field whose first ``lead`` axes index
+    pairs, stacked back to the field's shape.  Each pair of the result
+    keeps the strides of ``fn``'s own result, so that the next product of
+    a chain sees each pair laid out as a single pair's."""
+    pairs = x.reshape((-1,) + x.shape[lead:])
+    ys = [fn(p) for p in pairs]
+    # empty_like keeps the strides of a dense result (a view such as
+    # ``.real`` is not dense and gets contiguous ones)
+    like = torch.empty_like(ys[0])
+    out = torch.empty_strided((len(ys),) + like.shape,
+                              (like.numel(),) + like.stride(),
+                              dtype=like.dtype, device=like.device)
+    for o, y in zip(out, ys):
+        o.copy_(y)
+    return out.reshape(x.shape)
+
+
+def _transform(x: torch.Tensor, mat: torch.Tensor, axis: int,
+               lead: int = 0) -> torch.Tensor:
+    """Apply an (n, n) transform matrix along one axis (negative) of a
+    field whose first ``lead`` axes index pairs of a batch.
+
+    On the CPU a batch goes pair by pair, each pair through the single
+    pair's product, so that it gets the single pair's bits: BLAS picks its
+    kernel by the operand's layout, and the axis moved last is a
+    transposed view for one pair but a copy for a batch (the t axis of a
+    (B, Nt, Ny, Nx) field rounded differently from each (Nt, Ny, Nx)
+    pair's).  On cuda one product serves the whole batch, each pair
+    bitwise its single product (``chip_smoke.py``'s lockstep phase holds
+    this on the H100)."""
+    if lead and x.device.type == "cpu":
+        return _per_pair(lambda p: _transform(p, mat, axis), x, lead)
     y = torch.matmul(x.movedim(axis, -1), mat.T)
     return y.movedim(-1, axis)
 
@@ -245,10 +276,16 @@ class _AxisTransform:
         else:
             raise ValueError(f"unknown transform route {mode!r}")
 
-    def __call__(self, x: torch.Tensor, axis: int,
-                 inverse: bool) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, axis: int, inverse: bool,
+                 lead: int = 0) -> torch.Tensor:
+        """The transform along ``axis`` (negative) of a field whose first
+        ``lead`` axes index pairs (pair by pair on the CPU, as
+        :func:`_transform`)."""
         if self.mode == "dense":
-            return _transform(x, self.mat.T if inverse else self.mat, axis)
+            return _transform(x, self.mat.T if inverse else self.mat, axis,
+                              lead)
+        if lead and x.device.type == "cpu":
+            return _per_pair(lambda p: self(p, axis, inverse), x, lead)
         x = x.movedim(axis, -1)
         if self.mode == "fold":
             y = _folded_last(x, self.E, self.O, inverse)
@@ -272,13 +309,13 @@ class SeparableDCT:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = len(self.axes)
         for i, ax in enumerate(self.axes):
-            x = ax(x, i - d, inverse=False)
+            x = ax(x, i - d, inverse=False, lead=x.dim() - d)
         return x
 
     def inverse(self, x: torch.Tensor) -> torch.Tensor:
         d = len(self.axes)
         for i, ax in enumerate(self.axes):
-            x = ax(x, i - d, inverse=True)
+            x = ax(x, i - d, inverse=True, lead=x.dim() - d)
         return x
 
 

@@ -201,6 +201,10 @@ class PallasCGOps(_DefaultOps):
 
 
 DEFAULT_OPS = _DefaultOps()
+# the JAX module's ready sets; each keeps the plans of the systems it has
+# solved across calls, as DEFAULT_OPS keeps its CG graphs
+DCT_OPS = DCTOps()
+PALLAS_OPS = PallasOps()
 
 
 def _per_pair_sum(x):

@@ -106,3 +106,13 @@ def wasserstein2_dual(a, b, epsilon=4.0, solve_kw=()):
     envelope backward."""
     s = sinkhorn_divergence_dual(a, b, epsilon, solve_kw)
     return torch.sqrt(torch.clamp(s, min=1e-12))
+
+
+def value_and_grad(fn, a, *args):
+    """``fn(a, *args)`` and its gradient with respect to ``a`` (the uses
+    of ``jax.value_and_grad`` on these values): one forward, the envelope
+    backward."""
+    a = a.detach().requires_grad_(True)
+    val = fn(a, *args)
+    (g,) = torch.autograd.grad(val, a)
+    return val.detach(), g

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ofot_tpu_torch.solvers import flow_extract, foto
+from ofot_tpu_torch.solvers.flow_extract import flow_from_potential  # noqa: F401
 
 
 class WfrResult(NamedTuple):

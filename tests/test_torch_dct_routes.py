@@ -288,3 +288,64 @@ def test_solve_path_transforms_match_jax(modes):
                                atol=1e-12)
     np.testing.assert_allclose(dct._idct3_solve(got, modes=modes3).numpy(),
                                x3, rtol=0, atol=1e-12)
+
+
+# ------------------------------------------ each pair of a batch: its bits
+#
+# BLAS picks its kernel by the operand's layout: moved last, the t axis of
+# one (Nt, Ny, Nx) pair is a transposed view, of a (B, Nt, Ny, Nx) batch a
+# copy, and on some CPUs the two products round differently.  A batch on
+# the CPU therefore goes pair by pair (``dct._per_pair``), and each pair
+# must get its single product's bits whatever the batch size.
+
+PAIR_SHAPES = [(4, 24, 28), (16, 24, 32)]
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=str)
+@pytest.mark.parametrize("axis", [-3, -2, -1])
+def test_transform_is_bitwise_per_pair_across_batch_sizes(axis, dtype,
+                                                          shape):
+    x = torch.from_numpy(RNG.standard_normal((8,) + shape)).to(dtype)
+    mat = dct._matrix(shape[axis], dtype, "cpu")
+    singles = [dct._transform(x[i], mat, axis) for i in range(8)]
+    for B in (1, 3, 8):
+        got = dct._transform(x[:B], mat, axis, lead=1)
+        assert got.shape == (B,) + shape
+        for i in range(B):
+            assert torch.equal(got[i], singles[i]), (B, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=str)
+def test_stepA_solves_are_bitwise_per_pair_across_batch_sizes(dtype):
+    """The chain of three transforms, the divide and the inverse chain
+    (``StepAPlan.solve``, the ``dct`` and ``pallas`` sets' stepA), the
+    separable transforms of every route, and the plain version of the
+    ``dct-fused`` solve (``dct_solve_reference``, one r and a per-pair r):
+    each pair of a batch is bitwise its single solve for B = 1, 3, 8."""
+    from ofot_tpu_torch.ops.kernels import dct_solve as ds
+    shape = (4, 18, 20)
+    F = torch.from_numpy(RNG.standard_normal((8,) + shape)).to(dtype)
+    rs = torch.tensor([1.0, 2.0, 0.5, 1.3, 0.7, 1.0, 3.0, 0.9],
+                      dtype=torch.float64)
+    single = dct.StepAPlan(shape, 1.0, 1e-2, dtype, "cpu")
+    routes = [dct.SeparableDCT(shape, dtype, "cpu", modes)
+              for modes in (("dense",) * 3, ("dense", "fft", "fold"))]
+    for B in (1, 3, 8):
+        got = dct.StepAPlan((B,) + shape, 1.0, 1e-2, dtype, "cpu").solve(
+            F[:B])
+        fused = ds.dct_solve_reference(F[:B], 1.0, 1e-2)
+        fused_r = ds.dct_solve_reference(F[:B], rs[:B], 1e-2)
+        for i in range(B):
+            assert torch.equal(got[i], single.solve(F[i])), (B, i)
+            assert torch.equal(fused[i],
+                               ds.dct_solve_reference(F[i], 1.0, 1e-2))
+            assert torch.equal(fused_r[i], ds.dct_solve_reference(
+                F[i], float(rs[i]), 1e-2))
+        for sep in routes:
+            fwd, inv = sep.forward(F[:B]), sep.inverse(F[:B])
+            for i in range(B):
+                assert torch.equal(fwd[i], sep.forward(F[i]))
+                assert torch.equal(inv[i], sep.inverse(F[i]))

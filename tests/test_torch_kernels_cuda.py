@@ -574,6 +574,30 @@ def test_lockstep_solve_batch_full_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dct", "pallas"])
+def test_lockstep_pairs_are_bitwise_their_single_solves_on_card(
+        cuda_device, solver):
+    """Each pair of a lockstep FOTO solve with the spectral stepA (``dct``;
+    ``pallas`` adds the batched fused kernel) is bitwise its single-pair
+    solve on the card: one batched t-axis product serves the batch there,
+    where the CPU goes pair by pair (``solvers/dct.py:_transform``)."""
+    from ofot_tpu_torch.parallel import sweep
+    from ofot_tpu_torch.solvers import foto
+    a = RNG.uniform(0.1, 0.9, (3, 24, 28)).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(1, 2))
+    b[1] = np.roll(a[1], (-2, 1), axis=(0, 1))
+    kw = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=40,
+              admm_alpha=1.7, ops=foto.stepA_ops(solver))
+    states = sweep.solve_foto_batch(a, b, 4, device="cuda", **kw)
+    for i in range(3):
+        one = foto.solve_potential(torch.from_numpy(a[i]).cuda(),
+                                   torch.from_numpy(b[i]).cuda(), 4, **kw)
+        assert int(states.iteration[i]) == one.iteration
+        assert torch.equal(states.phi[i], one.phi)
+        assert torch.equal(states.mu[i], one.mu)
+
+
+@pytest.mark.cuda
 def test_warp_of_an_all_nan_flow_on_the_card(cuda_device):
     """A FOTO solve stopped by its NaN guard returns an all-NaN flow; its
     warp must give NaN pixels on the card, not an out-of-range gather

@@ -46,6 +46,9 @@ CASES = {
     "WFR-pallas": ("WFR", {"wfr_params": dict(
         FOTO, delta=2.5, convergence_tol=0.05, admm_alpha=1.7,
         stepA_solver="pallas")}),
+    "WFR-pallas-f64": ("WFR", {"wfr_params": dict(
+        FOTO, delta=2.5, convergence_tol=0.05, admm_alpha=1.7,
+        stepA_solver="pallas")}),
     "GN-f64": ("GN", {"gn_params": dict(alpha=0.1, lambda_=0.2)}),
     "sinkhorn-matmul": ("sinkhorn", {"sinkhorn_params": dict(
         epsilon=4.0, max_iter=200, tol=1e-5, check_every=5)}),
@@ -53,6 +56,17 @@ CASES = {
         epsilon=4.0, max_iter=200, tol=1e-5, check_every=5, anneal=False,
         stabilizer="exact")}),
 }
+# The crit of WFR-pallas's nearly static pair (shift (0.2, 0), stopped at
+# iteration 9) carries float32 rounding amplified ~1e3 times.  At float64
+# the port and JAX agree there to 1e-13 (the WFR-pallas-f64 case).  At
+# float32 each package lands up to ~1.2e-3 (relative) from that float64
+# crit: JAX's vmap +6.9e-4, its map +4.7e-4; the port -1.22e-3.
+# Re-running both with the frames moved by one float32 ulp (random
+# signs, 5 draws) moved JAX's crit between -5.8e-4 and +8.5e-4 and the
+# port's between -7.3e-4 and +1.06e-3 of the float64 value.  Two
+# float32 results each within 1.22e-3 of it differ by up to 2.44e-3.
+CRIT_RTOL = {"WFR-pallas": 2.5e-3}
+FLOAT64_BOUNDS = dict(crit_rtol=1e-9, aepe=1e-9)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,10 +123,15 @@ def test_lockstep_matches_jax_vmap(case):
     if "inner_iterations" in diag:
         assert np.abs(diag["inner_iterations"]
                       - np.asarray(jdiag["inner_iterations"])).max() <= 2
+    f64 = case.endswith("f64") and algo != "GN"
     for key in ("crit", "marginal_error"):
         if key in diag:
+            rtol = (FLOAT64_BOUNDS["crit_rtol"] if f64
+                    else CRIT_RTOL.get(case, 1e-3))
             np.testing.assert_allclose(diag[key], np.asarray(jdiag[key]),
-                                       rtol=1e-3, atol=1e-6, err_msg=key)
+                                       rtol=rtol, atol=0 if f64 else 1e-6,
+                                       err_msg=key)
     aepe = np.sqrt((u.numpy() - np.asarray(ju)) ** 2
                    + (v.numpy() - np.asarray(jv)) ** 2).mean(axis=(1, 2))
-    assert aepe.max() < 1e-3, (case, aepe)
+    assert aepe.max() < (FLOAT64_BOUNDS["aepe"] if f64 else 1e-3), (
+        case, aepe)

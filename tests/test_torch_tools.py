@@ -7,10 +7,28 @@
 with ``ofot_tpu.compat`` on the CPU at tests/test_compat.py's tolerances
 (1e-12 for the warp and the trajectory; the solves, both float64, to 1e-8
 of their max, a few hundred CG steps summed in another order).
+
+The differentiable layer's two user tools against their JAX twins
+(``tools/w2_gradient_flow.py``, ``tools/tune_gn.py``, each run as a
+subprocess on the CPU):
+
+  * ``w2_gradient_flow`` at ``--size 24 --steps 3``, float32 as in JAX:
+    the JSON S trajectories within 2e-4 relative (measured: 5.1e-5; the
+    annealed Sinkhorn solves sum in another order), each strictly
+    decreasing;
+  * ``tune_gn`` on a 2-sequence 24x20 Middlebury-2 layout written here,
+    ``--steps 3``, both float64: the tuned alpha and lambda and every EE
+    within 1e-6 relative (CG to rtol 1e-8 on both sides), and the same
+    printed table.
 """
 
 import contextlib
 import io
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,7 +44,8 @@ from ofot_tpu.utils import image as jax_image
 import ofot_tpu_torch.compat as compat
 from ofot_tpu_torch.cli import create_lum_dataset, data_diff
 from ofot_tpu_torch.cli import normalize_image, print_operators
-from ofot_tpu_torch.utils import image
+from ofot_tpu_torch.tools import tune_gn, w2_gradient_flow
+from ofot_tpu_torch.utils import flo, image
 
 import fixtures
 
@@ -218,3 +237,131 @@ def test_compat_defaults_to_the_card():
         with pytest.raises((RuntimeError, AssertionError)):
             compat.apply_opticalflow(np.zeros(4), np.zeros(4), np.zeros(4),
                                      2, 2)
+
+
+# ------------------------------------------- the differentiable layer's tools
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _jax_tool(code, *args, timeout=300):
+    """Run ``code`` (a script that calls a JAX tool) in a CPU subprocess."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def _trajectory(text):
+    line = [ln for ln in text.splitlines() if ln.startswith("{")][-1]
+    rec = json.loads(line)
+    assert rec["tool"] == "w2_gradient_flow" and rec["steps"] == 3
+    return rec["S_trajectory"]
+
+
+def test_w2_gradient_flow_matches_jax(tmp_path):
+    args = ["--size", "24", "--steps", "3", "--platform", "cpu"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert w2_gradient_flow.main(
+            args + ["--out-dir", str(tmp_path)]) == 0
+    ours = _trajectory(out.getvalue())
+    theirs = _trajectory(_jax_tool(
+        "import runpy, sys; sys.argv = ['w2_gradient_flow.py'] + "
+        "sys.argv[1:]; runpy.run_path('tools/w2_gradient_flow.py', "
+        "run_name='__main__')", *args))
+    assert len(ours) == len(theirs) == 4
+    np.testing.assert_allclose(ours, theirs, rtol=2e-4)
+    assert all(b < a for a, b in zip(ours, ours[1:]))
+    labels = [ln.split("=")[0] for ln in out.getvalue().splitlines()[:4]]
+    assert labels == [f"step {t:2d}: S " for t in range(3)] + ["final:   S "]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"a_{i:02d}.png" for i in range(4)] + ["target.png"]
+
+
+# (dy, dx) of each sequence's constant ground-truth flow
+TUNE_SHIFTS = {"Blob": (1, 1), "Drift": (0, 2)}
+
+
+def write_middlebury2(root: Path, h: int = 20, w: int = 24):
+    """A Middlebury-2 layout of seeded textures moved by TUNE_SHIFTS, with
+    the constant ground truth as ``.flo`` (u = dx, v = dy)."""
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:h + 8, 0:w + 8]
+    for name, (dy, dx) in TUNE_SHIFTS.items():
+        tex = sum(rng.uniform(0.05, 0.15) * np.cos(
+            rng.uniform(0.2, 0.6) * yy + rng.uniform(0.2, 0.6) * xx
+            + rng.uniform(0, 6.3)) for _ in range(4)) + 0.5
+        f1 = tex[4:4 + h, 4:4 + w]
+        f2 = tex[4 - dy:4 - dy + h, 4 - dx:4 - dx + w]
+        seq = root / "middlebury-2" / "other-data-gray" / name
+        gt = root / "middlebury-2" / "other-gt-flow" / name
+        seq.mkdir(parents=True)
+        gt.mkdir(parents=True)
+        image.save_grayscale(f1, str(seq / "frame10.png"))
+        image.save_grayscale(f2, str(seq / "frame11.png"))
+        flo.write_flo(w, h, np.full(h * w, float(dx)),
+                      np.full(h * w, float(dy)), str(gt / "flow10.flo"))
+    return root
+
+
+# the JAX tool with optax.apply_updates and metrics.EE wrapped, so that
+# its tuned parameters and EE come back at full precision
+JAX_TUNE = """
+import importlib.util, json, sys
+sys.path.insert(0, '.')
+import optax
+from ofot_tpu.utils import metrics
+thetas, ees = [], []
+apply, ee = optax.apply_updates, metrics.EE
+def recording_apply(p, u):
+    out = apply(p, u)
+    thetas.append([float(v) for v in out])
+    return out
+def recording_ee(*a):
+    r = ee(*a)
+    ees.append(r[0])
+    return r
+optax.apply_updates, metrics.EE = recording_apply, recording_ee
+spec = importlib.util.spec_from_file_location('tune_gn', 'tools/tune_gn.py')
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+sys.argv = ['tune_gn.py'] + sys.argv[1:]
+assert tool.main() == 0
+print('RESULT ' + json.dumps(dict(theta=thetas[-1], ees=ees)))
+"""
+
+
+def test_tune_gn_matches_jax(tmp_path):
+    root = write_middlebury2(tmp_path)
+    args = ["--data-root", str(root), "--steps", "3", "--platform", "cpu"]
+    jax_out = _jax_tool(JAX_TUNE, *args)
+    rec = json.loads(jax_out.split("RESULT ")[1])
+    names, groups = tune_gn.load_groups(str(root / "middlebury-2"), "cpu")
+    assert names == sorted(TUNE_SHIFTS) and len(groups) == 1
+    res = tune_gn.tune(groups, names, 3, 0.15, "cpu")
+    np.testing.assert_allclose([res["alpha"], res["lambda_"]],
+                               np.exp(rec["theta"]), rtol=1e-6)
+    np.testing.assert_allclose(res["ee_default"] + res["ee_tuned"],
+                               rec["ees"], rtol=1e-6)
+    assert res["losses"][-1] < res["losses"][0]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert tune_gn.main(args) == 0
+    ours = out.getvalue().splitlines()
+    theirs = jax_out.split("RESULT ")[0].splitlines()
+    assert len(ours) == len(theirs) == 2 + len(names)
+    assert [ln.split()[0] for ln in ours] == [ln.split()[0]
+                                              for ln in theirs]
+
+
+def test_tools_refuse_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        w2_gradient_flow.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune_gn.main(["--data-root", str(write_middlebury2(tmp_path))])
