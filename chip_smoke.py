@@ -29,6 +29,11 @@ Phases, each printed with its elapsed seconds:
    its 3xTF32 design runs on) and, where one PyTorch call computes the
    same function, that call's time; dct_solve and its float32 plain
    version each against the float64 solve at the sweep shape, over seeds;
+   the tile form of the stepA operator (``cg_operator_tile``) on the tiles
+   of 2x2 splits of (16, 240, 320) and (16, 240, 322) (both of its paths)
+   and of a split with tiles one line wide, the tiles put together bitwise
+   the whole-field kernel, each within CG_ATOL of its plain version, and
+   timed warm and cold on a (16, 120, 160) tile with its four lines;
 8. paths: the CLI at 320x240 on the same pair, each path with every launch
    count set to 0 just before it and read just after: FOTO with
    ``--stepA-solver=dct-fused``, FOTO with ``cg-pallas`` (``--max-it`` cut),
@@ -125,10 +130,12 @@ Phases, each printed with its elapsed seconds:
    (b) four processes sharing the card on a gloo 2x2 mesh: tiled FOTO, WFR
    and GN against the whole solves at float64 (atol 1e-8), the GSPMD route
    with the ``pallas`` and ``dct-fused`` sets at float32 to their stopping
-   rule against the whole solve with the same set per solve (IE within
-   0.5%), the fused kernel (``pallas``, on the rank's tile) or the stepA
-   solve (``dct-fused``, on the gathered F) launched once per iteration on
-   every rank; the world's start-up logged apart from its cases; (c) ``run
+   rule, and with ``cg-pallas`` for DIST_CG_PALLAS_MAX_IT iterations,
+   against the whole solve with the same set per solve (IE within 0.5%),
+   the fused kernel (``pallas``, on the rank's tile) or the stepA solve
+   (``dct-fused``, on the gathered F) launched once per iteration, and the
+   tile operator (``cg-pallas``) once per CG step, on every rank, and the
+   whole-field operator never; the world's start-up logged apart from its cases; (c) ``run
    --batch --data-parallel 2``, then 4, on phase 15's middlebury-1 data
    against the one-process map batch (AEPE < 1e-4); (d) two
    ``multihost_worker`` processes with ``--platform cuda``, each leg's wall
@@ -745,6 +752,96 @@ def check_cg_operator(device, mem_bw, f32_rate):
     for name in ("cg_operator", "cg_operator_blocked"):
         out[name] = dict(rec, bound_ms=bound_ms, bound_by=bound_by)
     return worst, out
+
+
+# The tile form of kernel #4 on the tiles of these splits of these fields:
+# 2x2 at the sweep shape (4 x points a thread), 2x2 with tx = 161 (one
+# point a thread), and tiles one line wide at the global edges
+TILE_SPLITS = (
+    ((16, 240, 320), (0, 120, 240), (0, 160, 320)),
+    ((16, 240, 322), (0, 120, 240), (0, 161, 322)),
+    ((16, 240, 320), (0, 1, 120, 239, 240), (0, 1, 160, 319, 320)))
+TILE_SHAPE = (16, 120, 160)              # a 2x2 rank's tile of SHAPE
+
+
+def field_tiles(f, ys, xs):
+    """Each tile of ``f`` between the cuts, with its (up, down, left,
+    right) lines cut from the whole field (None on a global edge)."""
+    _, ny, nx = f.shape
+    for a, b in zip(ys, ys[1:]):
+        for c, d in zip(xs, xs[1:]):
+            lines = (f[:, a - 1, c:d] if a > 0 else None,
+                     f[:, b, c:d] if b < ny else None,
+                     f[:, a:b, c - 1] if c > 0 else None,
+                     f[:, a:b, d] if d < nx else None)
+            yield ((slice(None), slice(a, b), slice(c, d)),
+                   f[:, a:b, c:d].contiguous(),
+                   tuple(None if h is None else h.contiguous()
+                         for h in lines))
+
+
+def check_cg_operator_tile(device, mem_bw, f32_rate):
+    """Phase 7, the tile form of kernel #4: on each split of TILE_SPLITS the
+    tiles put together bitwise the whole-field kernel, each tile within
+    CG_ATOL of its plain version, repeats bitwise-equal; then timed on a
+    TILE_SHAPE tile with all four lines (an inner rank's tile), warm and
+    cold.  No PyTorch call computes the tile operator: library_ms is
+    None."""
+    r, eps = 1.0, 1e-2
+    worst = 0.0
+    for shape, ys, xs in TILE_SPLITS:
+        f = _random(shape, device, SEED + 4)
+        whole = cgk.cg_operator_blocked(f, r, eps)
+        out = torch.full_like(f, float("nan"))
+        for where, t, halos in field_tiles(f, ys, xs):
+            got = cgk.cg_operator_tile(t, halos, r, eps)
+            again = cgk.cg_operator_tile(t, halos, r, eps)
+            err = float((got - cgk.cg_operator_tile_reference(
+                t, halos, r, eps)).abs().max())
+            worst = max(worst, err)
+            if not err < CG_ATOL or not torch.equal(got, again):
+                raise AssertionError(f"cg_operator_tile {tuple(t.shape)} of "
+                                     f"{shape}: error {err:.3e} or repeats "
+                                     "differ")
+            out[where] = got
+        torch.cuda.synchronize()
+        if not torch.equal(out, whole):
+            bad = int((out != whole).sum())
+            raise AssertionError(f"cg_operator_tile on {shape} cut at {ys} "
+                                 f"x {xs}: {bad} points are not the "
+                                 "whole-field kernel's bits")
+        _log(f"  cg_operator_tile {shape} cut at y {ys}, x {xs}: tiles "
+             "bitwise the whole-field kernel; max |tile - plain| "
+             f"{worst:.3e}")
+
+    def tile_set(seed):
+        Nt, ty, tx = TILE_SHAPE
+        x = _random(TILE_SHAPE, device, seed)
+        halos = tuple(_random((Nt, n), device, seed + 100 + k)
+                      for k, n in enumerate((tx, tx, ty, ty)))
+        return x, halos
+
+    x, halos = tile_set(SEED + 5)
+    enqueue, _ = cgk.prepare_tile_launch(x, halos, r, eps)
+    rec = time_kernel(enqueue, lambda: cgk.cg_operator_tile_reference(
+        x, halos, r, eps))
+    Nt, ty, tx = TILE_SHAPE
+    # the tile in and out, the four lines in, once each; 14 operations a
+    # point as the whole-field kernel
+    nbytes = 4 * (2 * x.numel() + 2 * Nt * tx + 2 * Nt * ty)
+    ops = 14 * x.numel()
+    bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
+    _timing_line(f"cg_operator_tile {TILE_SHAPE} + 4 lines", rec, bound_ms,
+                 bound_by, nbytes, ops)
+    cold = cold_times(lambda i: cgk.prepare_tile_launch(
+        *tile_set(SEED + 200 + 10 * i), r, eps)[0], nbytes)
+    _log(f"  cg_operator_tile cold: {cold['cold_ms']:.4f} ms by events, "
+         f"{cold['cold_device_ms']:.4f} ms device over {cold['cold_sets']} "
+         f"rotating sets; kernel at "
+         f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound by cold "
+         "device time")
+    return dict(rec, max_abs_err=worst, bound_ms=bound_ms,
+                bound_by=bound_by, **cold)
 
 
 # ------------------------------------------------------------ main path
@@ -2398,10 +2495,16 @@ def bench_phase():
 # tiled GN's Jacobi CG runs at most DIST_GN_MAXITER steps; the workers'
 # tiled FOTO DIST_WORKER_ITERS iterations.
 DIST_MAX_IT, DIST_GN_MAXITER, DIST_WORKER_ITERS = 5, 100, 5
+# The GSPMD route with the cg-pallas set (a host-loop CG of about 230 steps
+# an ALG2 iteration, each step a halo exchange, two all-reduces and one
+# tile-kernel launch per rank) runs this many ALG2 iterations, and the
+# whole solve it is held against the same.
+DIST_CG_PALLAS_MAX_IT = 3
 # Tiled against whole at float64 on the card: the tests' (and
 # tests/test_parallel.py's) whole-vs-tiled bound.  The GSPMD route with
-# the pallas and dct-fused sets at float32 runs to its stopping rule and
-# is compared per solve, as stepA sets are: IE within 0.5%.
+# the pallas and dct-fused sets at float32 runs to its stopping rule, and
+# with cg-pallas to DIST_CG_PALLAS_MAX_IT, and is compared per solve, as
+# stepA sets are: IE within 0.5%.
 DIST_ATOL, DIST_IE_RTOL = 1e-8, 5e-3
 DIST_SECONDS = 600.0
 
@@ -2483,18 +2586,22 @@ def four_rank_world(rho):
     Nt, kw = SHAPE[0], _foto_dist_kw(DIST_MAX_IT)
     wkw = dict(kw, delta=WFR_DELTA)
     gkw = dict(alpha=0.1, lambda_=0.2, maxiter=DIST_GN_MAXITER)
-    pkw = _foto_dist_kw(200)
+    pkw = {ops: _foto_dist_kw(DIST_CG_PALLAS_MAX_IT if ops == "cg-pallas"
+                              else 200)
+           for ops in ("pallas", "dct-fused", "cg-pallas")}
     tiles = {"y": 2, "x": 2}
-    # the GSPMD sets and the kernel each launches once an iteration on
-    # every rank: pallas's fused pass on the rank's tile, dct-fused's
-    # whole-field solve on the gathered F
-    gspmd_sets = {"pallas": "fused_pointwise", "dct-fused": "dct_solve"}
+    # the GSPMD sets and the kernel each launches on every rank: pallas's
+    # fused pass on the rank's tile and dct-fused's whole-field solve on
+    # the gathered F once an iteration, cg-pallas's tile operator once a
+    # CG step
+    gspmd_sets = {"pallas": "fused_pointwise", "dct-fused": "dct_solve",
+                  "cg-pallas": "cg_operator_tile"}
     specs = [("foto", tiles, "foto_tiled", dict(f1=f0, f2=f1, Nt=Nt, **kw)),
              ("wfr", tiles, "wfr_tiled", dict(f1=f0, f2=f1, Nt=Nt, **wkw)),
              ("gn", tiles, "gn_tiled", dict(f1=f0, f2=f1, **gkw)),
              *[(ops, tiles, "foto_gspmd",
                 dict(f1=f0.astype(np.float32), f2=f1.astype(np.float32),
-                     Nt=Nt, ops=ops, **pkw)) for ops in gspmd_sets]]
+                     Nt=Nt, ops=ops, **pkw[ops])) for ops in gspmd_sets]]
     t0 = time.time()
     world = launch.run(cases.run_cases, 4, specs, CARD, threads=0,
                        seconds=DIST_SECONDS)
@@ -2517,7 +2624,7 @@ def four_rank_world(rho):
     for ops in gspmd_sets:
         solves[ops] = functools.partial(
             foto.solve_potential, a.float(), b.float(), Nt,
-            ops=foto.stepA_ops(ops), **pkw)
+            ops=foto.stepA_ops(ops), **pkw[ops])
     whole, secs = {}, {}
     for name, fn in solves.items():
         t0 = time.time()
@@ -2549,22 +2656,32 @@ def four_rank_world(rho):
     launches = {}
     for ops, kernel in gspmd_sets.items():
         g, w_ = got[ops], whole[ops]
+        # a CG set launches its kernel once a CG step (the tiled CG is a
+        # host loop), the others once an ALG2 iteration; every other
+        # kernel, the whole-field #4 among them, never
+        cg = ops == "cg-pallas"
+        per = "a CG step" if cg else "an iteration"
+        steps = int(g["cg_iterations" if cg else "iteration"])
         for r in world:
             check_launches(f"GSPMD {ops} rank", r[f"{ops}_launches"],
-                           {kernel: int(g["iteration"])})
+                           {kernel: steps})
         ie_t, ie_w = _ie(f0, f1, g["phi"]), _ie(f0, f1, w_.phi)
         gap = abs(ie_t - ie_w) / ie_w
-        if not (gap <= DIST_IE_RTOL and int(g["iteration"]) < 200
-                and w_.iteration < 200):
+        ran = (int(g["iteration"]) == w_.iteration == DIST_CG_PALLAS_MAX_IT
+               if cg else int(g["iteration"]) < 200 and w_.iteration < 200)
+        if not (gap <= DIST_IE_RTOL and ran):
             raise AssertionError(f"GSPMD {ops}: IE {ie_t} against {ie_w}, "
                                  f"{g['iteration']} / {w_.iteration} "
                                  "iterations")
-        _log(f"  (b) GSPMD route, {ops} set, float32, 2x2: "
-             f"{int(g['iteration'])} iterations against {w_.iteration} "
-             f"whole; IE {ie_t:.6f} against {ie_w:.6f} (gap {gap:.2e}, tol "
+        counts = (f"{int(g['iteration'])} iterations ({steps} CG steps) "
+                  f"against {w_.iteration} ({w_.cg_iterations})" if cg else
+                  f"{int(g['iteration'])} iterations against "
+                  f"{w_.iteration}")
+        _log(f"  (b) GSPMD route, {ops} set, float32, 2x2: {counts} whole; "
+             f"IE {ie_t:.6f} against {ie_w:.6f} (gap {gap:.2e}, tol "
              f"{DIST_IE_RTOL:g}); {world[0][ops + '_s']:.2f} s against "
-             f"{secs[ops]:.2f} s whole; {kernel} launched once an "
-             "iteration on each rank")
+             f"{secs[ops]:.2f} s whole; {kernel} launched once {per} on "
+             "each rank")
         launches[kernel] = sum(r[f"{ops}_launches"][kernel] for r in world)
     return launches
 
@@ -3157,6 +3274,7 @@ def main() -> int:
             dct_rec = check_dct_solve(device, mem_bw, f32_rate)
             proj_err, proj = check_projection(device, mem_bw, f32_rate)
             cg_err, cg_recs = check_cg_operator(device, mem_bw, f32_rate)
+            tile_rec = check_cg_operator_tile(device, mem_bw, f32_rate)
 
         with Phase("8 paths"):
             paths = run_paths(workdir)
@@ -3247,9 +3365,9 @@ def main() -> int:
                     **{k: rec[k] for k in ("cold_ms", "cold_device_ms")
                        if k in rec})
 
-    # this slice's paths: the bench (phase 17) and the GSPMD route
-    # (phase 18, summed over its 4 ranks): pallas's tile-local fused pass
-    # and dct-fused's solve of the gathered F
+    # the bench (phase 17) and the GSPMD route (phase 18, summed over its
+    # 4 ranks): pallas's tile-local fused pass, dct-fused's solve of the
+    # gathered F and cg-pallas's tile operator
     bench_launches = {k: r["launches"] for k, r in bench_recs.items()}
     record = {"kernels": [
         dict(entry("fused_pointwise", "fused_pointwise.cu", 224,
@@ -3276,9 +3394,20 @@ def main() -> int:
         entry("cg_operator", "cg_operator.cu", 488,
               sum(r["launches"]["cg_operator"] for r in every_run),
               cg_err, cg_recs["cg_operator"]),
-        entry("cg_operator_blocked", "cg_operator.cu", 528,
-              paths["foto-cg-pallas"]["launches"]["cg_operator_blocked"],
-              cg_err, cg_recs["cg_operator_blocked"]),
+        # the GSPMD cg-pallas route runs #4's tile form instead (its
+        # launches summed over the 4 ranks)
+        dict(entry("cg_operator_blocked", "cg_operator.cu", 528,
+                   paths["foto-cg-pallas"]["launches"]["cg_operator_blocked"],
+                   cg_err, cg_recs["cg_operator_blocked"]),
+             gspmd_launches=gspmd_launches["cg_operator_tile"],
+             tile_device_ms=tile_rec["device_ms"]),
+        # #4's tile form, timed on a (16, 120, 160) tile with four lines;
+        # no library call computes it
+        dict(entry("cg_operator_tile", "cg_operator.cu", 528,
+                   gspmd_launches["cg_operator_tile"],
+                   tile_rec["max_abs_err"], tile_rec),
+             cold_ms=tile_rec["cold_ms"],
+             cold_device_ms=tile_rec["cold_device_ms"]),
         # the lockstep forms (phase 16, B = 8 pairs a launch): launches
         # from the lockstep FOTO run at the pipeline's parameters and from
         # the lockstep dct-fused and cg-pallas runs (B = 4)

@@ -40,38 +40,32 @@
 // bitwise that of a single-pair launch; the bound is B times the
 // single-pair bound.
 //
+// Tile form (ofot_cg_operator_tile): the operator on one rank's (Nt, ty,
+// tx) tile of a field split over a (y, x) mesh of ranks, the counterpart of
+// what cg_operator_pallas_blocked computes on the part of the field a
+// device holds when XLA partitions the solve.  The tile comes with the four
+// lines next to it (the neighbouring ranks' edge rows and columns), and the
+// 'N' rows apply only where a side has no line, i.e. on the global edge.
+// Each point evaluates the shared expression of cg_operator.cuh on the
+// values it has in the whole field, so the tiles' outputs put together are
+// bitwise the whole-field launch's.  The same two forms as above: 4 x
+// points a thread (tx % 4 == 0, aligned tile and row lines; the column
+// lines come in as scalars) or one point a thread.  Bound: bytes, the tile
+// in and out plus the lines, read once.
+//
 // Plain C interface (no PyTorch header); the launcher returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cg_operator.cuh"
+
 namespace {
 
+using ofot::apply;
+
 constexpr int kThreads = 256;
-
-// One axis of the 'N' Laplacian at a point: c is the point, prev/next its
-// neighbours along the axis (read only where they exist).  The rounding is
-// spelled out, so that both kernels below round alike.
-__device__ __forceinline__ float lap_n(float c, float prev, float next,
-                                       bool first, bool last) {
-  if (first) return __fadd_rn(-c, next);
-  if (last) return __fadd_rn(-c, prev);
-  return __fadd_rn(__fmaf_rn(-2.f, c, next), prev);
-}
-
-// The operator at one point, from its six neighbours (each used only where
-// it exists) and which boundaries the point lies on.
-__device__ __forceinline__ float apply(float c, float tp, float tn, float xp,
-                                      float xn, float yp, float yn, bool t0,
-                                      bool t1, bool x0, bool x1, bool y0,
-                                      bool y1, float r, float reps) {
-  const float lt = lap_n(c, tp, tn, t0, t1);
-  const float lx = lap_n(c, xp, xn, x0, x1);
-  const float ly = lap_n(c, yp, yn, y0, y1);
-  // the order of laplacian_st: t, then x, then y
-  return __fmaf_rn(reps, c, __fmul_rn(-r, __fadd_rn(__fadd_rn(lt, lx), ly)));
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -148,6 +142,97 @@ cg_operator_point_kernel(const float* __restrict__ x, float* __restrict__ y,
                y0, y1, r, reps);
 }
 
+// ---------------------------------------------------------- tile form
+//
+// One rank's (Nt, ty, tx) tile of a (y, x)-split field.  up/down are the
+// (Nt, tx) rows just above and below the tile, left/right the (Nt, ty)
+// columns just left and right of it, each a neighbouring rank's edge line;
+// a null line is a global edge, where the 'N' row applies.  A neighbour
+// across a tile edge is read from its line, so each point sees the values
+// and boundary flags it has in the whole field.
+
+struct Halos {
+  const float* up;
+  const float* down;
+  const float* left;
+  const float* right;
+};
+
+// tx % 4 == 0, x, y, up and down 16-byte aligned: 4 consecutive x a thread.
+__global__ void __launch_bounds__(kThreads)
+cg_operator_tile_quad_kernel(const float* __restrict__ x,
+                             float* __restrict__ y, int Nt, int ty, int tx,
+                             Halos h, float r, float reps) {
+  const int nq = tx / 4;
+  const long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= (long long)Nt * ty * nq) return;
+  const int xq = (int)(q % nq);
+  const long long row = q / nq;
+  const int iy = (int)(row % ty), it = (int)(row / ty);
+  const long long plane = (long long)ty * tx;
+  const long long i = row * tx + 4 * xq;
+  const long long line_y = (long long)it * tx + 4 * xq;  // in up/down
+  const long long line_x = (long long)it * ty + iy;      // in left/right
+
+  const bool t0 = it == 0, t1 = it == Nt - 1;
+  const bool y0 = iy == 0 && h.up == nullptr;
+  const bool y1 = iy == ty - 1 && h.down == nullptr;
+  const float4 c4 = load4(x + i);
+  const float4 tp4 = t0 ? c4 : load4(x + i - plane);
+  const float4 tn4 = t1 ? c4 : load4(x + i + plane);
+  const float4 yp4 = y0 ? c4 : iy == 0 ? load4(h.up + line_y)
+                                       : load4(x + i - tx);
+  const float4 yn4 = y1 ? c4 : iy == ty - 1 ? load4(h.down + line_y)
+                                            : load4(x + i + tx);
+  const float left = xq > 0 ? x[i - 1]
+                     : h.left != nullptr ? h.left[line_x] : 0.f;
+  const float right = xq < nq - 1 ? x[i + 4]
+                      : h.right != nullptr ? h.right[line_x] : 0.f;
+
+  const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+  const float tp[4] = {tp4.x, tp4.y, tp4.z, tp4.w};
+  const float tn[4] = {tn4.x, tn4.y, tn4.z, tn4.w};
+  const float yp[4] = {yp4.x, yp4.y, yp4.z, yp4.w};
+  const float yn[4] = {yn4.x, yn4.y, yn4.z, yn4.w};
+  const float xp[4] = {left, c4.x, c4.y, c4.z};
+  const float xn[4] = {c4.y, c4.z, c4.w, right};
+  float out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int ix = 4 * xq + k;
+    out[k] = apply(c[k], tp[k], tn[k], xp[k], xn[k], yp[k], yn[k], t0, t1,
+                   ix == 0 && h.left == nullptr,
+                   ix == tx - 1 && h.right == nullptr, y0, y1, r, reps);
+  }
+  *reinterpret_cast<float4*>(y + i) =
+      make_float4(out[0], out[1], out[2], out[3]);
+}
+
+// Any tile: one thread per point.
+__global__ void __launch_bounds__(kThreads)
+cg_operator_tile_point_kernel(const float* __restrict__ x,
+                              float* __restrict__ y, int Nt, int ty, int tx,
+                              Halos h, float r, float reps) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long plane = (long long)ty * tx;
+  if (i >= Nt * plane) return;
+  const int ix = (int)(i % tx);
+  const int iy = (int)((i / tx) % ty), it = (int)(i / plane);
+  const long long line_y = (long long)it * tx + ix;
+  const long long line_x = (long long)it * ty + iy;
+  const bool t0 = it == 0, t1 = it == Nt - 1;
+  const bool x0 = ix == 0 && h.left == nullptr;
+  const bool x1 = ix == tx - 1 && h.right == nullptr;
+  const bool y0 = iy == 0 && h.up == nullptr;
+  const bool y1 = iy == ty - 1 && h.down == nullptr;
+  const float xp = ix > 0 ? x[i - 1] : x0 ? 0.f : h.left[line_x];
+  const float xn = ix < tx - 1 ? x[i + 1] : x1 ? 0.f : h.right[line_x];
+  const float yp = iy > 0 ? x[i - tx] : y0 ? 0.f : h.up[line_y];
+  const float yn = iy < ty - 1 ? x[i + tx] : y1 ? 0.f : h.down[line_y];
+  y[i] = apply(x[i], t0 ? 0.f : x[i - plane], t1 ? 0.f : x[i + plane], xp,
+               xn, yp, yn, t0, t1, x0, x1, y0, y1, r, reps);
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -178,6 +263,38 @@ int ofot_cg_operator(const float* x, float* y, int batch, int Nt, int Ny,
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     cg_operator_point_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
         x, y, planes, Nt, Ny, Nx, r, reps, r_pairs, reps_pairs);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x and y are one rank's contiguous float32 (Nt, ty, tx) tile, Nt >= 2.
+// up/down: the contiguous (Nt, tx) rows above and below it; left/right:
+// the contiguous (Nt, ty) columns left and right of it; nullptr where the
+// tile lies on the global edge.  A tile one line wide needs a line on at
+// least one side of that axis (the field is >= 2 wide).  reps = r * eps.
+// Returns cudaGetLastError().
+int ofot_cg_operator_tile(const float* x, float* y, int Nt, int ty, int tx,
+                          const float* up, const float* down,
+                          const float* left, const float* right, float r,
+                          float reps, cudaStream_t stream) {
+  if (Nt < 2 || ty < 1 || tx < 1 ||
+      (ty < 2 && up == nullptr && down == nullptr) ||
+      (tx < 2 && left == nullptr && right == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Halos h{up, down, left, right};
+  const long long n = (long long)Nt * ty * tx;
+  if (tx % 4 == 0 && aligned16(x) && aligned16(y) &&
+      (up == nullptr || aligned16(up)) &&
+      (down == nullptr || aligned16(down))) {
+    const long long blocks = (n / 4 + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cg_operator_tile_quad_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+        x, y, Nt, ty, tx, h, r, reps);
+  } else {
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cg_operator_tile_point_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+        x, y, Nt, ty, tx, h, r, reps);
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,7 @@ KERNELS = {
     "project_paraboloid": ("projection", "launches"),
     "cg_operator": ("cg_operator", "launches"),
     "cg_operator_blocked": ("cg_operator", "blocked_launches"),
+    "cg_operator_tile": ("cg_operator", "tile_launches"),
 }
 
 

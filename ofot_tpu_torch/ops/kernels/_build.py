@@ -135,6 +135,10 @@ def load_library() -> ctypes.CDLL:
             vp, vp, c_int, c_int, c_int, c_int,   # x y batch Nt Ny Nx
             c_float, c_float, vp, vp,         # r r*eps r_pairs reps_pairs
             vp],                              # stream
+        "ofot_cg_operator_tile": [
+            vp, vp, c_int, c_int, c_int,      # x y Nt ty tx
+            vp, vp, vp, vp,                   # up down left right
+            c_float, c_float, vp],            # r r*eps stream
         "ofot_dct_solve": [
             vp, vp, vp,                       # Fz out tmp
             vp, vp, vp, vp,                   # Cy CyT Cx CxT

@@ -23,8 +23,8 @@ import torch
 import torch.distributed as dist
 
 from ofot_tpu_torch.ops import kernels
-from ofot_tpu_torch.parallel import foto_sharded, gn_sharded, gspmd, sweep
-from ofot_tpu_torch.parallel import wfr_sharded
+from ofot_tpu_torch.parallel import foto_sharded, gn_sharded, gspmd, halo
+from ofot_tpu_torch.parallel import sweep, wfr_sharded
 from ofot_tpu_torch.parallel.halo import ShardedOps
 from ofot_tpu_torch.parallel.mesh import make_mesh
 from ofot_tpu_torch.solvers import foto
@@ -84,8 +84,7 @@ def gn_gspmd(mesh, f1, f2, **kw):
 
 
 def refusals(mesh, shape=(7, 8)):
-    """The message of each tiled solve's refusal of ``shape`` frames, and
-    of the cg-pallas set's refusal."""
+    """The message of each tiled solve's refusal of ``shape`` frames."""
     z = np.zeros(shape)
     out = {}
     for name, call in (
@@ -93,14 +92,36 @@ def refusals(mesh, shape=(7, 8)):
                                                                 mesh)),
             ("wfr", lambda: wfr_sharded.solve_potential_tiled(z, z, 4,
                                                               mesh)),
-            ("gn", lambda: gn_sharded.solve_fields_tiled(z, z, mesh)),
-            ("cg-pallas", lambda: gspmd.sharded_ops(
-                foto.stepA_ops("cg-pallas"), mesh))):
+            ("gn", lambda: gn_sharded.solve_fields_tiled(z, z, mesh))):
         try:
             call()
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
+    return out
+
+
+def edge_lines(mesh, field):
+    """Each side's lines from ``halo.edge_lines`` on every rank's tile of
+    ``field`` (Nt, Ny, Nx) beside the edge lines of ``_halo_shifts``'
+    shifted tiles, each gathered over the plane (a row side as (Nt, py,
+    Nx), a column side as (Nt, Ny, px); zeros where a side has no line),
+    and which ranks had no line, as a (py, px) 0/1 field a side."""
+    f = mesh.tile(field)
+    lines = halo.edge_lines(f, mesh)
+    y, x = (halo._halo_shifts(f, (-1, 1), axis, mesh, name)
+            for axis, name in ((-2, "y"), (-1, "x")))
+    shifts = {"up": y[0][..., :1, :], "down": y[1][..., -1:, :],
+              "left": x[0][..., :1], "right": x[1][..., -1:]}
+    out = {}
+    for side, line in zip(("up", "down", "left", "right"), lines):
+        like = shifts[side]
+        got = torch.zeros_like(like) if line is None \
+            else line.view(like.shape)
+        out[side] = _np(mesh.gather(got))
+        out[f"{side}_shift"] = _np(mesh.gather(like))
+        out[f"{side}_none"] = _np(mesh.gather(torch.full(
+            (1, 1), float(line is None), device=mesh.device)))
     return out
 
 

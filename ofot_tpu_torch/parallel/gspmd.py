@@ -19,8 +19,12 @@ with the ops set given to the solve made tiled (:func:`sharded_ops`):
   * ``pallas``'s fused stepB + stepC + criterion pass (kernel #1) runs
     tile-local on each rank's tile, with its ``num``/``den`` sums
     all-reduced;
-  * ``cg-pallas`` is refused: kernel #4 works on a whole field, and a tile
-    form with halos is later work.
+  * ``cg-pallas`` keeps its CG stepA as the ``cg`` set does, and its SpMV
+    is the tile form of kernel #4 (``cg_operator_tile``): each CG step
+    brings in the four lines next to the rank's tile in one exchange round
+    (``halo.edge_lines``) and launches the kernel once on the tile.  XLA
+    partitions (or gathers around) the Pallas call instead; the result is
+    the same.
 
 GN's spectral preconditioner is a global transform too and takes the
 gather route; its Jacobi one is tile-local.  On one card, a world of more
@@ -34,10 +38,12 @@ import functools
 
 import torch
 
+from ofot_tpu_torch.ops.kernels.cg_operator import cg_operator_tile
 from ofot_tpu_torch.parallel import gn_sharded
-from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.parallel.halo import ShardedOps, edge_lines
 from ofot_tpu_torch.parallel.mesh import Mesh, shard_pair
 from ofot_tpu_torch.solvers import foto, gn, wfr
+from ofot_tpu_torch.solvers.lockstep import kernel_r
 
 
 def gather_state(state: foto.FotoState, mesh: Mesh) -> foto.FotoState:
@@ -75,19 +81,27 @@ def _gathered_class(cls):
                 attrs)
 
 
+class TiledPallasCGOps(ShardedOps):
+    """The tiled ``cg-pallas`` set: the tiled ``cg`` set (halo stencils,
+    all-reduced dots, a host-loop CG) whose SpMV is the tile form of
+    kernel #4, one exchange round and one launch a CG step."""
+
+    def cg_operator(self, r, reg_epsilon):
+        r = kernel_r(r)
+        return lambda phi: cg_operator_tile(phi, edge_lines(phi, self.mesh),
+                                            r, reg_epsilon)
+
+
 def sharded_ops(ops, mesh: Mesh):
     """The tiled form of the (single-pair) ops set ``ops`` on ``mesh``
     (its own state carried over)."""
-    if isinstance(ops, foto.PallasCGOps):
-        raise ValueError(
-            "the cg-pallas set cannot run tiled: kernel #4 (cg_operator) "
-            "works on a whole field, and its tile form with halos is not "
-            "written yet; use the cg set")
     if isinstance(ops, foto._Lockstep) or isinstance(ops, ShardedOps):
         raise ValueError(f"{type(ops).__name__} is not a single-pair ops "
                          "set")
     if type(ops) is foto._DefaultOps:
         return ShardedOps(mesh)
+    if type(ops) is foto.PallasCGOps:
+        return TiledPallasCGOps(mesh)
     if not isinstance(ops, foto.DCTOps):
         raise ValueError(f"no tiled form of {type(ops).__name__}")
     tiled = object.__new__(_gathered_class(type(ops)))

@@ -21,7 +21,9 @@ touch the first two / last two lines, which are then tile-local).
 ``ShardedOps`` is the operator set of a tiled ALG2 loop: halo stencils,
 sums and maxima all-reduced over the plane (so every rank reaches the same
 stop decision), the tile-local projection, and stepA's CG with those
-stencils and all-reduced dot products.
+stencils and all-reduced dot products.  :func:`edge_lines` brings in the
+four lines next to a tile in one exchange round, for the tile form of the
+stepA operator kernel (the tiled ``cg-pallas`` set, ``parallel/gspmd.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,32 @@ def _halo_shifts(f, offsets, axis: int, mesh: Mesh, name: str):
         else:
             out.append(torch.cat([edge, f.narrow(axis, 0, n - 1)], axis))
     return out
+
+
+def edge_lines(f, mesh: Mesh):
+    """The four lines next to this rank's tile of ``f`` (..., ty, tx), as
+    the tile form of kernel #4 takes them: (up, down, left, right), the
+    row above and the row below the tile, the column left and the column
+    right of it, each contiguous, or None on the global edge.
+
+    Each is a neighbour's edge line (up is the last row of the rank above
+    it): all of them move in one exchange round, the x-lines (strided in
+    the tile) made contiguous before the send.  Bitwise the lines
+    ``_halo_shifts`` brings in at the tile's edges."""
+    sides = (("y", -1), ("y", 1), ("x", -1), ("x", 1))
+    peers = [None if mesh.size(name) == 1 else mesh.neighbour(name, step)
+             for name, step in sides]
+    sends, recvs = [], []
+    for (name, step), peer in zip(sides, peers):
+        if peer is not None:
+            # my line facing that neighbour goes to it, and its line facing
+            # me (of the same shape) comes back
+            line = f.select(-2 if name == "y" else -1,
+                            0 if step == -1 else -1).contiguous()
+            sends.append((peer, line))
+            recvs.append((peer, line))
+    got = iter(mesh.exchange(sends, recvs))
+    return tuple(None if peer is None else next(got) for peer in peers)
 
 
 def _halo_shift(f, offset: int, axis: int, mesh: Mesh, name: str):

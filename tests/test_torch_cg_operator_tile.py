@@ -1,0 +1,156 @@
+"""The tile form of the CG stepA operator (``cg_operator_tile``) and the
+tiled ``cg-pallas`` set, on the CPU.
+
+A seeded (4, 8, 12) field is split into tiles along y and x, evenly as a
+(2, 2), (1, 4) or (4, 1) mesh splits it, and unevenly with tiles one line
+wide at the global edges and in the middle.  Each tile goes through the
+plain tile operator with the lines next to it (None on a global edge); put
+back together, the tiles are bitwise ``cg_operator_reference`` of the
+whole field, at float32 and float64.  At float32 they also lie within
+1e-5 of the Pallas kernel ``cg_operator_pallas_blocked`` in interpret mode
+(tests/test_pallas.py's bound, as tests/test_torch_cg_operator.py holds
+the whole-field entry points).
+
+The CUDA kernel is held bitwise against the whole-field kernel on the card
+in tests/test_torch_kernels_cuda.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from ofot_tpu.ops.pallas import kernels
+from ofot_tpu_torch.ops.kernels import cg_operator as cgk
+from ofot_tpu_torch.parallel import gspmd
+from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.solvers import foto
+
+FIELD = np.random.default_rng(53).standard_normal((4, 8, 12))
+# (y cuts, x cuts) of the (8, 12) plane
+SPLITS = {
+    "2x2": ((0, 4, 8), (0, 6, 12)),
+    "1x4": ((0, 8), (0, 3, 6, 9, 12)),
+    "4x1": ((0, 2, 4, 6, 8), (0, 12)),
+    "one-line edges": ((0, 1, 7, 8), (0, 1, 5, 6, 11, 12)),
+}
+
+
+def tiles(f, ys, xs):
+    """Each tile of ``f`` between the cuts, with its (up, down, left,
+    right) lines cut from the whole field (None on a global edge)."""
+    _, ny, nx = f.shape
+    for a, b in zip(ys, ys[1:]):
+        for c, d in zip(xs, xs[1:]):
+            lines = (f[:, a - 1, c:d] if a > 0 else None,
+                     f[:, b, c:d] if b < ny else None,
+                     f[:, a:b, c - 1] if c > 0 else None,
+                     f[:, a:b, d] if d < nx else None)
+            yield ((slice(None), slice(a, b), slice(c, d)),
+                   f[:, a:b, c:d].contiguous(),
+                   tuple(None if h is None else h.contiguous()
+                         for h in lines))
+
+
+def assembled(f, ys, xs, r, eps):
+    out = torch.full_like(f, float("nan"))
+    for where, t, halos in tiles(f, ys, xs):
+        out[where] = cgk.cg_operator_tile(t, halos, r, eps)
+    return out
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,eps", [(1.0, 1e-2), (0.7, 1e-3)])
+def test_tiles_assemble_to_the_whole_field_bitwise(split, dtype, r, eps):
+    f = torch.from_numpy(FIELD).to(dtype)
+    got = assembled(f, *SPLITS[split], r, eps)
+    assert torch.equal(got, cgk.cg_operator_reference(f, r, eps))
+
+
+@pytest.fixture
+def _interpret_mode(monkeypatch):
+    real_call = pl.pallas_call
+
+    def patched(*a, **kw):
+        kw.setdefault("interpret", True)
+        return real_call(*a, **kw)
+
+    monkeypatch.setattr(kernels.pl, "pallas_call", patched)
+
+
+@pytest.mark.usefixtures("_interpret_mode")
+@pytest.mark.parametrize("split", ["2x2", "one-line edges"])
+def test_tiles_match_the_pallas_kernel(split):
+    x = FIELD.astype(np.float32)
+    got = assembled(torch.from_numpy(x), *SPLITS[split], 0.7, 1e-3)
+    want = np.asarray(kernels.cg_operator_pallas_blocked(jnp.asarray(x),
+                                                         0.7, 1e-3))
+    assert float(np.abs(got.numpy() - want).max()) < 1e-5
+
+
+def test_cpu_tiles_take_the_plain_version_without_counting():
+    f = torch.from_numpy(FIELD)
+    where, t, halos = next(tiles(f, *SPLITS["2x2"]))
+    before = (cgk.launches, cgk.blocked_launches, cgk.tile_launches)
+    got = cgk.cg_operator_tile(t, halos, 1.0, 1e-2)
+    assert torch.equal(got, cgk.cg_operator_tile_reference(t, halos, 1.0,
+                                                           1e-2))
+    assert (cgk.launches, cgk.blocked_launches, cgk.tile_launches) == before
+
+
+def test_other_devices_raise():
+    x = torch.zeros(3, 4, 5, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cgk.cg_operator_tile(x, (None,) * 4, 1.0, 1e-2)
+
+
+@pytest.mark.parametrize("halos,match", [
+    ((torch.zeros(4, 4), None, None, None), "halo up has shape"),
+    ((None, None, torch.zeros(4, 6), None), "halo left has shape"),
+    ((None, None, None), r"\(up, down, left, right\)"),
+])
+def test_bad_halos_raise(halos, match):
+    with pytest.raises(ValueError, match=match):
+        cgk.cg_operator_tile(torch.zeros(4, 5, 6), halos, 1.0, 1e-2)
+
+
+def test_a_one_line_tile_needs_a_line_on_that_axis():
+    with pytest.raises(ValueError, match="one line wide"):
+        cgk.cg_operator_tile(torch.zeros(4, 1, 6), (None,) * 4, 1.0, 1e-2)
+    got = cgk.cg_operator_tile(torch.zeros(4, 1, 6),
+                               (torch.ones(4, 6), None, None, None), 1.0,
+                               1e-2)
+    # the global last row against the line above: -r * (-0 + 1)
+    assert torch.equal(got, torch.full((4, 1, 6), -1.0))
+
+
+class _LoneMesh:
+    """A mesh of one rank: no neighbour on any side."""
+
+    @staticmethod
+    def size(name):
+        return 1
+
+    @staticmethod
+    def exchange(sends, recvs):
+        assert sends == [] and recvs == []
+        return []
+
+
+def test_sharded_ops_maps_cg_pallas_to_the_tile_set():
+    tiled = gspmd.sharded_ops(foto.stepA_ops("cg-pallas"), _LoneMesh())
+    assert type(tiled) is gspmd.TiledPallasCGOps
+    assert isinstance(tiled, ShardedOps) and tiled.host_only
+    with pytest.raises(ValueError, match="not a single-pair"):
+        gspmd.sharded_ops(foto.lockstep_ops(foto.stepA_ops("cg-pallas")),
+                          _LoneMesh())
+
+
+def test_tile_set_operator_on_a_lone_tile_is_the_whole_operator():
+    """On a mesh of one rank every side is a global edge: the tiled set's
+    SpMV is the whole-field operator, bitwise."""
+    f = torch.from_numpy(FIELD)
+    A = gspmd.TiledPallasCGOps(_LoneMesh()).cg_operator(0.7, 1e-3)
+    assert torch.equal(A(f), cgk.cg_operator_reference(f, 0.7, 1e-3))

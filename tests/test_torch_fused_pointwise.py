@@ -134,7 +134,8 @@ def test_build_command_is_plain_nvcc_for_sm90a():
     assert [s.name for s in _build.sources()] == [
         "cg_operator.cu", "dct_solve.cu", "fused_pointwise.cu",
         "projection.cu"]
-    assert [h.name for h in _build.headers()] == ["paraboloid.cuh"]
+    assert [h.name for h in _build.headers()] == ["cg_operator.cuh",
+                                                  "paraboloid.cuh"]
     assert _build.BUILD_DIR.name == "_build"
     for path in _build.sources():
         src = path.read_text()
@@ -144,6 +145,10 @@ def test_build_command_is_plain_nvcc_for_sm90a():
         src = (_build.SRC_DIR / name).read_text()
         assert '#include "paraboloid.cuh"' in src
         assert "cbrtf" not in src, name
+    # the stepA operator's whole-field and tile entry points share one
+    # point expression
+    src = (_build.SRC_DIR / "cg_operator.cu").read_text()
+    assert '#include "cg_operator.cuh"' in src
 
 
 @pytest.mark.parametrize("newer", ["library", "source", "header"])

@@ -28,7 +28,10 @@ that misses its tolerance is re-solved at float64 on the card.  An
 all-NaN flow warps to NaN pixels on the card, with no device-side assert.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
-4-byte copies otherwise).
+4-byte copies otherwise).  The tile form of the stepA operator, on the
+tiles of (2, 2), (1, 4) and (4, 1) splits and of a split with tiles one
+line wide, put together, is bitwise the whole-field kernel, on both its
+paths (4 x points a thread where tx % 4 == 0, one point otherwise).
 
 The solver loops run on the device loop by default on the card (captured
 graphs of K iterations, ``solvers/device_loop.py``): each is held bitwise
@@ -206,6 +209,72 @@ def test_dct_solve_keeps_float32_accuracy_against_float64_on_card(
         for got in (ds.dct_solve(F, r, eps),
                     ds.dct_solve_reference(F, r, eps)):
             assert float((got.double() - exact).abs().max()) / scale < 5e-6
+
+
+def _tiles(f, ys, xs):
+    """Each tile of ``f`` between the cuts, with its (up, down, left,
+    right) lines cut from the whole field (None on a global edge)."""
+    _, ny, nx = f.shape
+    for a, b in zip(ys, ys[1:]):
+        for c, d in zip(xs, xs[1:]):
+            lines = (f[:, a - 1, c:d] if a > 0 else None,
+                     f[:, b, c:d] if b < ny else None,
+                     f[:, a:b, c - 1] if c > 0 else None,
+                     f[:, a:b, d] if d < nx else None)
+            yield ((slice(None), slice(a, b), slice(c, d)),
+                   f[:, a:b, c:d].contiguous(),
+                   tuple(None if h is None else h.contiguous()
+                         for h in lines))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ys,xs", [
+    ((16, 240, 320), (0, 120, 240), (0, 160, 320)),     # 2x2, 4 x a thread
+    ((16, 240, 322), (0, 120, 240), (0, 161, 322)),     # 2x2, tx = 161
+    ((16, 240, 320), (0, 1, 120, 239, 240), (0, 1, 160, 319, 320)),
+    ((5, 17, 23), (0, 17), (0, 6, 12, 18, 23)),         # 1x4
+    ((5, 17, 23), (0, 4, 8, 12, 17), (0, 23)),          # 4x1
+])
+def test_cg_operator_tile_assembles_to_the_whole_kernel_on_card(
+        cuda_device, shape, ys, xs):
+    """The tiles' outputs put together are bitwise the whole-field kernel
+    #4; each tile lies within #4's tolerance of its plain version, and
+    repeats are bitwise-equal."""
+    f = torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(
+        cuda_device)
+    whole = cgk.cg_operator_blocked(f, 0.7, 1e-3)
+    out = torch.full_like(f, float("nan"))
+    before, n = cgk.tile_launches, 0
+    for where, t, halos in _tiles(f, ys, xs):
+        got = cgk.cg_operator_tile(t, halos, 0.7, 1e-3)
+        again = cgk.cg_operator_tile(t, halos, 0.7, 1e-3)
+        n += 2
+        want = cgk.cg_operator_tile_reference(t, halos, 0.7, 1e-3)
+        assert float((got - want).abs().max()) < 1e-5
+        assert torch.equal(got, again)
+        out[where] = got
+    torch.cuda.synchronize()
+    assert cgk.tile_launches == before + n
+    assert torch.equal(out, whole)
+
+
+@pytest.mark.cuda
+def test_cg_operator_tile_rejects_bad_operands_on_card(cuda_device):
+    x = torch.zeros(3, 4, 8, device=cuda_device)
+    row = torch.zeros(3, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        cgk.cg_operator_tile(x.double(), (None,) * 4, 1.0, 1e-2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cgk.cg_operator_tile(torch.zeros(3, 8, 4, device=cuda_device
+                                         ).transpose(1, 2), (None,) * 4,
+                             1.0, 1e-2)
+    with pytest.raises(TypeError):
+        cgk.cg_operator_tile(x, (row.double(), None, None, None), 1.0, 1e-2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cgk.cg_operator_tile(x, (None, None, torch.zeros(
+            4, 3, device=cuda_device).t(), None), 1.0, 1e-2)
+    with pytest.raises(ValueError, match="halo down has shape"):
+        cgk.cg_operator_tile(x, (None, row[:, :7], None, None), 1.0, 1e-2)
 
 
 @pytest.mark.cuda

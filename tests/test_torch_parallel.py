@@ -4,16 +4,21 @@ package, on the CPU: counterpart of tests/test_parallel.py.
 One local world of 4 gloo processes (``parallel.launch.run``, a file
 rendezvous in a temporary directory, joined under a time limit) runs
 every case, each on a mesh of its own shape: (y, x) = (2, 2) for the halo
-stencils, the tiled and the GSPMD-route solves, ``data`` = 4 and 2 for
-the data sweeps.  The code the ranks run is ``ofot_tpu_torch.parallel.
-cases``.  Every rank must return the same result (the stop decisions are
+stencils, the tiled and the GSPMD-route solves, (1, 4) and (4, 1) as well
+for the edge lines of the tile operator and the tiled ``cg-pallas`` solve,
+``data`` = 4 and 2 for the data sweeps.  The code the ranks run is
+``ofot_tpu_torch.parallel.cases``.  Every rank must return the same result (the stop decisions are
 made from all-reduced values), and rank 0's is checked.
 
 Tolerances are tests/test_parallel.py's, at float64: the halo stencils
 atol 1e-12, the all-reduced sum rtol 1e-12; tiled against whole solves
 (and against JAX's tiled solves on conftest's 8 virtual devices) phi, mu,
 u, v, m atol 1e-8 and crit rtol 1e-6, with the same iteration count;
-``auto_r`` at float32 atol 2e-5.
+``auto_r`` at float32 atol 2e-5.  The tiled ``cg-pallas`` solves (the
+tile form of kernel #4, whose CPU path is its plain version) run CG to
+rtol 1e-13 and must also take within 2 CG steps of the whole solve in
+all (their dot products sum in another order; JAX's own tiled run takes
+one step more than its whole one).
 """
 
 import operator
@@ -26,6 +31,7 @@ import torch
 
 from ofot_tpu.parallel import foto_sharded as jax_foto_sharded
 from ofot_tpu.parallel import gn_sharded as jax_gn_sharded
+from ofot_tpu.parallel import gspmd as jax_gspmd
 from ofot_tpu.parallel import mesh as jax_mesh
 from ofot_tpu.parallel import wfr_sharded as jax_wfr_sharded
 from ofot_tpu.solvers import foto as jax_foto
@@ -52,14 +58,17 @@ WFR_KW = dict(delta=10.0, r=0.5, convergence_tol=1e-6, reg_epsilon=1e-2,
 GSPMD_KW = dict(r=1.0, convergence_tol=1e-6, reg_epsilon=1e-2, max_it=6)
 AUTO_KW = dict(r=1.0, reg_epsilon=1e-2, convergence_tol=0.0, max_it=6,
                cg_rtol=1e-12, cg_maxiter=300, auto_r=True)
-SETS = ("cg", "dct", "dct-refined", "dct-fused", "pallas")
+SETS = ("cg", "dct", "dct-refined", "dct-fused", "pallas", "cg-pallas")
+CG_SETS = ("cg", "cg-pallas")
+WFR_GSPMD_KW = dict(delta=10.0, r=0.5, convergence_tol=1e-6,
+                    reg_epsilon=1e-2, max_it=6)
 
 
-def _gspmd_kw(ops):
-    """The cg set runs the tiled halo CG, whose dot products sum in
+def _gspmd_kw(ops, kw=GSPMD_KW):
+    """The CG sets run the tiled halo CG, whose dot products sum in
     another order than the whole CG's: CG to tests/test_parallel.py's
     tiled rtol, 1e-13, so that both stop at the fixed point."""
-    return dict(GSPMD_KW, cg_rtol=1e-13) if ops == "cg" else GSPMD_KW
+    return dict(kw, cg_rtol=1e-13) if ops in CG_SETS else kw
 
 SWEEP_KW = dict(r=1.0, convergence_tol=1e-6, reg_epsilon=1e-2, max_it=4)
 # a lockstep block sums its CG dots per pair, in another order than one
@@ -78,6 +87,7 @@ BATCH_FOTO = dict(Nt=4, max_it=5, stepA_solver="dct", convergence_tol=1e-6,
                   reg_epsilon=1e-2)
 
 TILES = {"y": 2, "x": 2}
+MESHES = {"2x2": TILES, "1x4": {"y": 1, "x": 4}, "4x1": {"y": 4, "x": 1}}
 CASES = [
     ("stencils", TILES, "stencils", dict(phi=PHI, mu=MU, x=X)),
     ("foto", TILES, "foto_tiled", dict(f1=SQ[0], f2=SQ[1], Nt=4, **FOTO_KW)),
@@ -90,8 +100,15 @@ CASES = [
     *[(f"gspmd_foto_{s}", TILES, "foto_gspmd",
        dict(f1=SQ[0], f2=SQ[1], Nt=4, ops=s, **_gspmd_kw(s))) for s in SETS],
     ("gspmd_wfr", TILES, "wfr_gspmd",
-     dict(f1=UNBAL[0], f2=UNBAL[1], Nt=4, delta=10.0, r=0.5,
-          convergence_tol=1e-6, reg_epsilon=1e-2, max_it=6)),
+     dict(f1=UNBAL[0], f2=UNBAL[1], Nt=4, **WFR_GSPMD_KW)),
+    ("gspmd_wfr_cg-pallas", TILES, "wfr_gspmd",
+     dict(f1=UNBAL[0], f2=UNBAL[1], Nt=4, ops="cg-pallas",
+          **_gspmd_kw("cg-pallas", WFR_GSPMD_KW))),
+    *[(f"edge_lines_{m}", shape, "edge_lines", dict(field=PHI))
+      for m, shape in MESHES.items()],
+    *[(f"gspmd_foto_cg-pallas_{m}", MESHES[m], "foto_gspmd",
+       dict(f1=SQ[0], f2=SQ[1], Nt=4, ops="cg-pallas",
+            **_gspmd_kw("cg-pallas"))) for m in ("1x4", "4x1")],
     ("gspmd_gn", TILES, "gn_gspmd", dict(f1=BLOB[0], f2=BLOB[1])),
     ("foto_batch", {"data": 4}, "foto_batch",
      dict(r0=D4[0], rT=D4[1], Nt=4, device="cpu", **DATA_KW)),
@@ -194,10 +211,6 @@ def test_tiled_shape_validation(world, name):
     assert "not divisible by mesh" in _case(world, "refusals")[name]
 
 
-def test_cg_pallas_set_is_refused_tiled(world):
-    assert "kernel #4" in _case(world, "refusals")["cg-pallas"]
-
-
 def test_auto_r_tiled_matches_whole(world):
     """``auto_r``'s penalty is the GLOBAL max density (all-reduced MAX):
     the blob's peak lies in one tile."""
@@ -210,7 +223,7 @@ def test_auto_r_tiled_matches_whole(world):
 # ----------------------------------------------- the gather route (GSPMD)
 
 @pytest.mark.parametrize("ops", SETS)
-def test_foto_gspmd_equals_whole(world, ops):
+def test_foto_gspmd_equals_whole(world, mesh4, ops):
     got = _case(world, f"gspmd_foto_{ops}")
     whole = foto.solve_potential(_t(SQ[0]), _t(SQ[1]), 4,
                                  ops=foto.stepA_ops(ops), **_gspmd_kw(ops))
@@ -222,15 +235,80 @@ def test_foto_gspmd_equals_whole(world, ops):
                                         jnp.asarray(SQ[1]), 4, ops=jax_ops,
                                         **_gspmd_kw(ops))
         _close(got["phi"], want.phi)
+    if ops == "cg-pallas":
+        _assert_cg_pallas(world, "gspmd_foto_cg-pallas", whole,
+                          jax_gspmd.solve_foto_sharded(
+                              jnp.asarray(SQ[0]), jnp.asarray(SQ[1]), 4,
+                              mesh4, ops=jax_foto.stepA_ops("cg-pallas"),
+                              **_gspmd_kw(ops)))
+
+
+def _assert_cg_pallas(world, name, whole, jax_sharded):
+    """A tiled cg-pallas solve against the port's whole solve and JAX's
+    sharded one: the state, the iterations, CG steps within 2 of the
+    whole solve's; no launch on the CPU (the plain version runs)."""
+    got = _case(world, name)
+    for want in (whole, jax_sharded):
+        _assert_state(got, want)
+    assert abs(int(got["cg_iterations"]) - int(whole.cg_iterations)) <= 2
+    for r in world:
+        assert r[f"{name}_launches"]["cg_operator_tile"] == 0
 
 
 def test_wfr_gspmd_equals_whole(world):
     got = _case(world, "gspmd_wfr")
-    whole = wfr.solve_potential(_t(UNBAL[0]), _t(UNBAL[1]), 4, delta=10.0,
-                                r=0.5, convergence_tol=1e-6,
-                                reg_epsilon=1e-2, max_it=6)
+    whole = wfr.solve_potential(_t(UNBAL[0]), _t(UNBAL[1]), 4,
+                                **WFR_GSPMD_KW)
     _close(got["phi"], whole.phi)
     _close(got["mu"][3], whole.mu[3])
+
+
+def test_wfr_gspmd_cg_pallas_equals_whole_and_jax(world, mesh4):
+    kw = _gspmd_kw("cg-pallas", WFR_GSPMD_KW)
+    whole = wfr.solve_potential(_t(UNBAL[0]), _t(UNBAL[1]), 4,
+                                ops=foto.stepA_ops("cg-pallas"), **kw)
+    want = jax_gspmd.solve_wfr_sharded(
+        jnp.asarray(UNBAL[0]), jnp.asarray(UNBAL[1]), 4, mesh4,
+        ops=jax_foto.stepA_ops("cg-pallas"), **kw)
+    _assert_cg_pallas(world, "gspmd_wfr_cg-pallas", whole, want)
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "4x1"])
+def test_foto_gspmd_cg_pallas_on_strips_equals_whole(world, mesh):
+    """Tiles one tile wide along one axis: two global edges on every
+    tile, lines on the other axis only."""
+    whole = foto.solve_potential(_t(SQ[0]), _t(SQ[1]), 4,
+                                 ops=foto.stepA_ops("cg-pallas"),
+                                 **_gspmd_kw("cg-pallas"))
+    name = f"gspmd_foto_cg-pallas_{mesh}"
+    got = _case(world, name)
+    _assert_state(got, whole)
+    assert abs(int(got["cg_iterations"]) - int(whole.cg_iterations)) <= 2
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_edge_lines_match_halo_shifts(world, mesh):
+    """``halo.edge_lines``' four lines are bitwise the lines the halo
+    shifts bring in at the tile's edges, each the neighbour's edge line of
+    the whole field, and None exactly on the global edges."""
+    got = _case(world, f"edge_lines_{mesh}")
+    py, px = MESHES[mesh]["y"], MESHES[mesh]["x"]
+    ty, tx = PHI.shape[1] // py, PHI.shape[2] // px
+    iy, ix = np.arange(py), np.arange(px)
+    want = {
+        "up": (PHI[:, np.maximum(iy * ty - 1, 0), :], iy == 0, 1),
+        "down": (PHI[:, np.minimum((iy + 1) * ty, PHI.shape[1] - 1), :],
+                 iy == py - 1, 1),
+        "left": (PHI[:, :, np.maximum(ix * tx - 1, 0)], ix == 0, 2),
+        "right": (PHI[:, :, np.minimum((ix + 1) * tx, PHI.shape[2] - 1)],
+                  ix == px - 1, 2)}
+    for side, (lines, edge, axis) in want.items():
+        np.testing.assert_array_equal(got[side], got[f"{side}_shift"])
+        none = np.broadcast_to(edge[:, None] if axis == 1 else edge[None],
+                               (py, px))
+        np.testing.assert_array_equal(got[f"{side}_none"], none)
+        mask = edge[None, :, None] if axis == 1 else edge[None, None, :]
+        np.testing.assert_array_equal(got[side], np.where(mask, 0.0, lines))
 
 
 def test_gn_gspmd_equals_whole(world):
