@@ -33,7 +33,9 @@ Phases, each printed with its elapsed seconds:
    of 2x2 splits of (16, 240, 320) and (16, 240, 322) (both of its paths)
    and of a split with tiles one line wide, the tiles put together bitwise
    the whole-field kernel, each within CG_ATOL of its plain version, and
-   timed warm and cold on a (16, 120, 160) tile with its four lines;
+   timed warm and cold on a (16, 120, 160) tile with its four lines,
+   beside the card's launch floor: the device time of one in-place add to
+   a one-element tensor (``launch_floor_device_ms``);
 8. paths: the CLI at 320x240 on the same pair, each path with every launch
    count set to 0 just before it and read just after: FOTO with
    ``--stepA-solver=dct-fused``, FOTO with ``cg-pallas`` (``--max-it`` cut),
@@ -173,6 +175,21 @@ Phases, each printed with its elapsed seconds:
    reports its own counts, a 1x1 mesh on the card, a 2x2 gloo world of
    4 ranks on the CPU).  Each run's card and CPU seconds, launches and
    peak memory are logged; #1's record gains ``examples_launches``.
+21. graft entry: ``ofot_tpu_torch.graft_entry.entry()``'s one ALG2 step
+   (the default ``cg`` set, no kernel) on the card at float32 (phi
+   (8, 32, 40), finite; the card-vs-CPU gap logged, not held: CG capped at
+   50 steps amplifies rounding), then the same step at float64 with CG run
+   to GRAFT_CG_RTOL, card against CPU within GRAFT_F64_PHI of max|phi|
+   with the same CG steps (at the default rtol 1e-6 the gap is logged
+   beside the CPU's own under one-ulp input noise); then #1 and its
+   lockstep form against their plain versions at the dry run's shapes
+   ((3, 4, 8, 8) a pair, B = 2), and ``dryrun_multichip(1)``: this card as
+   an NCCL world of one rank running the JAX dry run's four legs with
+   their assertions, each leg's iterations, crit, wall and launches
+   logged, and each leg's launches held to its iterations by the device
+   loop's replay relation (#1 in the batch legs, whose FOTO ``auto`` is
+   ``pallas``; no kernel in the others); #1's records gain
+   ``graft_launches``.
 
 On the card every solver loop runs on the device loop by default, so
 wherever a phase held a kernel's launches to the iterations (phases 4, 8,
@@ -840,8 +857,21 @@ def check_cg_operator_tile(device, mem_bw, f32_rate):
          f"rotating sets; kernel at "
          f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound by cold "
          "device time")
+    floor = launch_floor_ms(device)
+    _log(f"  launch floor (one one-element in-place add): {floor:.4f} ms "
+         f"device, beside the tile kernel's {rec['device_ms']:.4f} warm / "
+         f"{cold['cold_device_ms']:.4f} cold and its {bound_ms:.6f} ms "
+         f"bound; the larger of bound and floor: "
+         f"{max(bound_ms, floor):.4f} ms")
     return dict(rec, max_abs_err=worst, bound_ms=bound_ms,
-                bound_by=bound_by, **cold)
+                bound_by=bound_by, launch_floor_device_ms=floor, **cold)
+
+
+def launch_floor_ms(device) -> float:
+    """The device time of the smallest launch: one in-place add to a
+    one-element tensor, by ``device_time_ms`` (the kernels' own method)."""
+    one = torch.zeros(1, device=device)
+    return device_time_ms(lambda: one.add_(1.0))
 
 
 # ------------------------------------------------------------ main path
@@ -3227,6 +3257,174 @@ def examples_phase(workdir: Path):
     return fused
 
 
+# ----------------------------------------------------------- graft entry
+
+# Phase 21.  entry()'s step at float64 (built from foto.init_state and
+# foto.alg2_iteration, as entry() builds it) runs its CG stepA to
+# GRAFT_CG_RTOL (GRAFT_CG_TO_TOLERANCE is a cap it never reaches: 241
+# steps), and the card's phi must be the CPU's within GRAFT_F64_PHI of
+# max|phi| with the same CG steps (tests/test_torch_graft_entry.py's
+# bound against JAX).  At the step's default cg_rtol 1e-6 (153 steps)
+# one-ulp noise on the inputs moves phi by ~5e-9 of max|phi|, so the card
+# is held at 1e-12 and the default's gap is logged beside the CPU's own
+# spread under such noise.
+GRAFT_CG_TO_TOLERANCE = 10_000
+GRAFT_CG_RTOL = 1e-12
+GRAFT_F64_PHI = 1e-10
+# the dry run's batch legs: the sweep's FOTO at max-it 4 resolves auto to
+# pallas on the card, so #1 runs in map mode (B = 2 pairs, one after the
+# other) and its lockstep form in vmap mode (both pairs a launch), on
+# (3, 4, 8, 8) planes a pair at alpha 1; no other leg launches a kernel
+GRAFT_KERNEL_LEGS = ("map", "vmap")
+GRAFT_PAIR_SHAPE = (3, 4, 8, 8)
+GRAFT_B = 2
+
+
+def _graft_step_f64(device, cg_rtol, noise=None):
+    """entry()'s step at float64 on ``device``, CG to ``cg_rtol`` ->
+    (phi on the CPU, crit, CG steps of its stepA, seconds).  ``noise``: a
+    seed; the first frame is then multiplied by 1 + 1e-16 x a standard
+    normal draw (one-ulp noise)."""
+    from ofot_tpu_torch import graft_entry
+    a, b = graft_entry._example_pair(dtype=np.float64)
+    if noise is not None:
+        a = a * (1 + 1e-16 * np.random.default_rng(noise).standard_normal(
+            a.shape))
+    a, b = (torch.as_tensor(f, device=device) for f in (a, b))
+    t0 = time.perf_counter()
+    st = foto.alg2_iteration(foto.init_state(a, b, 8), a, b, r=1.0,
+                             reg_epsilon=1e-2, convergence_tol=0.01,
+                             cg_rtol=cg_rtol,
+                             cg_maxiter=GRAFT_CG_TO_TOLERANCE)
+    crit = float(st.crit)
+    return (st.phi.cpu(), crit, int(st.cg_iterations),
+            time.perf_counter() - t0)
+
+
+def graft_kernels_vs_plain():
+    """#1 and its lockstep form on the card at the dry run's shapes:
+    GRAFT_PAIR_SHAPE alone and GRAFT_B such pairs a launch, at alpha 1
+    (the dry run's) and ADMM_ALPHA, with kernel_inputs' ranges, each
+    against its plain version at KERNEL_ATOL/KERNEL_RTOL (fields) and
+    SUM_RTOL (sums).  Returns the largest elementwise error."""
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for batch in (None, GRAFT_B):
+        shape = GRAFT_PAIR_SHAPE if batch is None \
+            else (batch,) + GRAFT_PAIR_SHAPE
+        for alpha in (None, ADMM_ALPHA):
+            g, m, qp = (torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+                np.float32)).to(CARD) for lo, hi in ((-2, 2), (-1, 2),
+                                                     (-2, 1)))
+            qp = qp if alpha is not None else None
+            if batch is None:
+                got = fp.fused_pointwise(g, m, 1.0, alpha=alpha, q_prev=qp)
+                want = fp.fused_pointwise_reference(g, m, 1.0, alpha, qp)
+            else:
+                r = torch.ones(batch, device=CARD)
+                got = fp.fused_pointwise_batched(g, m, r, alpha, qp)
+                want = fp.fused_pointwise_batched_reference(g, m, r, alpha,
+                                                            qp)
+            case = (f"{'fused_pointwise' if batch is None else 'batched'} "
+                    f"{tuple(shape)} alpha={alpha or 1.0}")
+            for a, b, name in zip(got[:2], want[:2], ("q", "mu")):
+                err = (a - b).abs()
+                bad = int((err > KERNEL_ATOL + KERNEL_RTOL * b.abs()).sum())
+                worst = max(worst, float(err.max()))
+                if bad:
+                    raise AssertionError(f"{case}: {name} disagrees with the "
+                                         f"plain version at {bad} points")
+            rel = max(float(((a - b).abs() / b.abs()).max())
+                      for a, b in zip(got[2:], want[2:]))
+            if rel > SUM_RTOL:
+                raise AssertionError(f"{case}: sums relative error "
+                                     f"{rel:.3e} > {SUM_RTOL}")
+            _log(f"  (b) {case}: max |kernel - plain| "
+                 f"{max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2])):.3e}"
+                 f", sums rel {rel:.3e}")
+    return worst
+
+
+def graft_entry_phase():
+    """Phase 21: (a) ``graft_entry.entry()``'s ALG2 step on the card at
+    float32 (phi (8, 32, 40), finite), then the same step at float64 with
+    CG run to rtol 1e-6 and GRAFT_CG_RTOL, card against CPU (held at the
+    latter); (b) #1 and its lockstep form against their plain versions at
+    the dry run's shapes, then ``graft_entry.dryrun_multichip(1)``: this
+    card as an NCCL world of one rank running the four legs with JAX's
+    assertions, each leg's launches held to its iterations by the device
+    loop's replay relation.  Returns the dry run's launches of #1 by leg
+    (map mode: the single-pair kernel; vmap mode: its lockstep form)."""
+    from ofot_tpu_torch import graft_entry
+    reset_counts()
+    fn, args = graft_entry.entry(device=CARD)
+    t0 = time.perf_counter()
+    phi, crit = fn(*args)
+    phi, crit = phi.cpu(), float(crit)
+    sec = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if phi.shape != (8, 32, 40) or not bool(torch.isfinite(phi).all()) \
+            or not np.isfinite(crit):
+        raise AssertionError(f"entry() on {CARD}: phi {tuple(phi.shape)}, "
+                             f"crit {crit}")
+    if any(launches.values()):
+        raise AssertionError(f"entry()'s default set launched {launches}")
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    t0 = time.perf_counter()
+    cpu_phi, cpu_crit = cpu_fn(*cpu_args)
+    cpu_sec = time.perf_counter() - t0
+    scale = float(cpu_phi.abs().max())
+    _log(f"  (a) entry() float32 on {CARD}: phi {tuple(phi.shape)}, crit "
+         f"{crit!r} (CG capped at 50 steps), {sec:.4f} s; CPU crit "
+         f"{float(cpu_crit)!r}, {cpu_sec:.4f} s; card against CPU "
+         f"{float((phi - cpu_phi).abs().max()) / scale:.3e} of max|phi| "
+         "(not held: CG capped at 50 steps amplifies rounding)")
+    for rtol in (1e-6, GRAFT_CG_RTOL):
+        phi, crit, cg, sec = _graft_step_f64(CARD, rtol)
+        cpu_phi, cpu_crit, cpu_cg, cpu_sec = _graft_step_f64("cpu", rtol)
+        scale = float(cpu_phi.abs().max())
+        noisy = _graft_step_f64("cpu", rtol, noise=SEED)[0]
+        gap = float((phi - cpu_phi).abs().max()) / scale
+        _log(f"  (a) entry()'s step float64, CG to rtol {rtol:g}: {CARD} "
+             f"{cg} CG steps, crit {crit!r}, {sec:.4f} s; CPU {cpu_cg}, "
+             f"crit {cpu_crit!r}, {cpu_sec:.4f} s; card against CPU "
+             f"{gap:.3e} of max|phi|; the CPU against itself on one-ulp "
+             f"noise {float((noisy - cpu_phi).abs().max()) / scale:.3e}")
+    if not (gap <= GRAFT_F64_PHI and cg == cpu_cg
+            and cg < GRAFT_CG_TO_TOLERANCE):
+        raise AssertionError(f"entry() float64 card against CPU at rtol "
+                             f"{GRAFT_CG_RTOL:g}: {gap:.3e} of max|phi|, CG "
+                             f"steps {cg} against {cpu_cg}")
+    graft_kernels_vs_plain()
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(1, platform=CARD)
+    wall = time.perf_counter() - t0
+    for leg in ("tiled", "gspmd", "wfr", "map", "vmap", "sinkhorn"):
+        r = res[leg]
+        got, its = r["launches"], r["iterations"]
+        extra = (f" ({r['cg_iterations']} CG steps)"
+                 if "cg_iterations" in r else "")
+        crit = r.get("crit", r.get("marginal_error"))
+        loops = device_loop.Stats(**r["loops"])
+        _log(f"  (b) dryrun_multichip(1) {leg}: iterations {its}{extra}, "
+             f"{'crit' if 'crit' in r else 'marginal error'} {crit}, "
+             f"done {r.get('done', '-')}, {r['wall_s']:.4f} s, launches "
+             f"{ {k: v for k, v in got.items() if v} or 0}, "
+             f"{loops.captures} captures, {loops.replays} replays")
+        # map mode launches #1 once an iteration of each pair, a lockstep
+        # batch its batched form once an iteration of its slowest pair (a
+        # rehearsal with CARD = "cpu" runs the plain versions: none)
+        expect = ({"fused_pointwise": sum(its) if leg == "map"
+                   else max(its)}
+                  if leg in GRAFT_KERNEL_LEGS and CARD == "cuda" else {})
+        check_launches(f"dryrun_multichip(1) {leg}", got, expect,
+                       loops=loops)
+    _log(f"  (b) dryrun_multichip(1) on {CARD}: every leg's assertions "
+         f"passed, {wall:.2f} s with the rank's start-up")
+    return {leg: res[leg]["launches"]["fused_pointwise"]
+            for leg in GRAFT_KERNEL_LEGS}
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -3340,6 +3538,9 @@ def main() -> int:
         with Phase("20 examples and tools"):
             example_launches = examples_phase(workdir)
 
+        with Phase("21 graft entry"):
+            graft_launches = graft_entry_phase()
+
     # launches: each kernel's count from the path that runs it; the
     # standalone projection and the whole-array operator are on no path
     every_run = [solve, *paths.values()]
@@ -3374,7 +3575,8 @@ def main() -> int:
                    solve["launches"]["fused_pointwise"], worst, t),
              bench_launches=bench_launches["auto"]["fused_pointwise"],
              gspmd_launches=gspmd_launches["fused_pointwise"],
-             examples_launches=example_launches),
+             examples_launches=example_launches,
+             graft_launches=graft_launches["map"]),
         # the library call is the port's whole cuBLAS stepA, so the whole
         # dct-fused stepA (t products + kernel) stands beside it
         dict(entry("dct_solve", "dct_solve.cu", 355,
@@ -3407,7 +3609,8 @@ def main() -> int:
                    gspmd_launches["cg_operator_tile"],
                    tile_rec["max_abs_err"], tile_rec),
              cold_ms=tile_rec["cold_ms"],
-             cold_device_ms=tile_rec["cold_device_ms"]),
+             cold_device_ms=tile_rec["cold_device_ms"],
+             launch_floor_device_ms=tile_rec["launch_floor_device_ms"]),
         # the lockstep forms (phase 16, B = 8 pairs a launch): launches
         # from the lockstep FOTO run at the pipeline's parameters and from
         # the lockstep dct-fused and cg-pallas runs (B = 4)
@@ -3415,7 +3618,8 @@ def main() -> int:
             "fused_pointwise_batched", "fused_pointwise.cu", 224,
             lock_solves["foto"]["launches"]["fused_pointwise"], lock_worst,
             lock_fp[3])),
-            bench_launches=bench_launches["batch 8"]["fused_pointwise"]),
+            bench_launches=bench_launches["batch 8"]["fused_pointwise"],
+            graft_launches=graft_launches["vmap"]),
         dict(lockstep_entry(entry(
             "dct_solve_batched", "dct_solve.cu", 355,
             lock_sets["dct-fused"]["launches"]["dct_solve"],

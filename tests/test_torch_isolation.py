@@ -76,6 +76,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_pil():
         "import ofot_tpu_torch.parallel.cases\n"
         "import ofot_tpu_torch.parallel.multihost_worker\n"
         "import ofot_tpu_torch.bench\n"
+        "import ofot_tpu_torch.graft_entry\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'ofot_tpu', 'PIL'))\n"
         "print(bad)\n"

@@ -791,3 +791,40 @@ def test_device_loop_launch_relation_on_card(cuda_device, solver, kernel):
         assert s.eager_launches.get(kernel, 0) == (1 if cold else 0)
         assert st.iteration <= s.replays * K < st.iteration + K
         _assert_launch_relation(launches, kernel, st.iteration)
+
+
+def _graft_step_f64(device):
+    """graft_entry.entry()'s step made from ``foto.init_state`` +
+    ``alg2_iteration`` at float64 on ``device``, CG to cg_rtol 1e-12 ->
+    (phi on the CPU, its CG steps)."""
+    from ofot_tpu_torch import graft_entry
+    from ofot_tpu_torch.solvers import foto
+    a, b = (torch.as_tensor(f, device=device)
+            for f in graft_entry._example_pair(dtype=np.float64))
+    st = foto.alg2_iteration(foto.init_state(a, b, 8), a, b, r=1.0,
+                             reg_epsilon=1e-2, convergence_tol=0.01,
+                             cg_rtol=1e-12, cg_maxiter=10_000)
+    return st.phi.cpu(), int(st.cg_iterations)
+
+
+@pytest.mark.cuda
+def test_graft_entry_step_on_card(cuda_device):
+    """entry()'s step (the default cg set, no kernel) on the card: float32
+    phi (8, 32, 40) and finite; at float64 with CG run to cg_rtol 1e-12
+    (at the default 1e-6 one-ulp input noise moves phi by ~5e-9 of
+    max|phi|), the CPU's phi within 1e-10 of max|phi| with the same CG
+    steps (the bound tests/test_torch_graft_entry.py holds the CPU to
+    against JAX)."""
+    from ofot_tpu_torch import graft_entry
+    from ofot_tpu_torch.ops import kernels
+    _reset_counts()
+    fn, args = graft_entry.entry(device="cuda")
+    assert all(a.device.type == "cuda" for a in args)
+    phi, crit = fn(*args)
+    assert phi.shape == (8, 32, 40) and bool(torch.isfinite(phi).all())
+    assert np.isfinite(float(crit))
+    assert not any(kernels.launch_counts().values())
+    card, cpu = _graft_step_f64("cuda"), _graft_step_f64("cpu")
+    scale = float(cpu[0].abs().max())
+    assert float((card[0] - cpu[0]).abs().max()) <= 1e-10 * scale
+    assert card[1] == cpu[1] == 241
