@@ -30,12 +30,16 @@ Phases, each printed with its elapsed seconds:
    same function, that call's time; dct_solve and its float32 plain
    version each against the float64 solve at the sweep shape, over seeds;
    the tile form of the stepA operator (``cg_operator_tile``) on the tiles
-   of 2x2 splits of (16, 240, 320) and (16, 240, 322) (both of its paths)
-   and of a split with tiles one line wide, the tiles put together bitwise
-   the whole-field kernel, each within CG_ATOL of its plain version, and
-   timed warm and cold on a (16, 120, 160) tile with its four lines,
-   beside the card's launch floor: the device time of one in-place add to
-   a one-element tensor (``launch_floor_device_ms``);
+   of the splits of TILE_SPLITS (2x2, 1x2, 2x1 and 3x3 splits of (16, 240,
+   320), a 2x2 split of (16, 240, 322), tiles one line wide, Nt = 2 and
+   5; both of its paths), the tiles put together bitwise the whole-field
+   kernel, each within CG_ATOL of its plain version, and timed warm and
+   cold on a (16, 120, 160) tile with its four lines, beside conv3d on
+   the tile padded with them and the card's launch floor: the device time
+   of one in-place add to a one-element tensor
+   (``launch_floor_device_ms``).  Cold times rotate over enough sets to
+   pass the L2 and run back to back behind a spin kernel
+   (``queued_times``), every kernel record counted;
 8. paths: the CLI at 320x240 on the same pair, each path with every launch
    count set to 0 just before it and read just after: FOTO with
    ``--stepA-solver=dct-fused``, FOTO with ``cg-pallas`` (``--max-it`` cut),
@@ -225,6 +229,7 @@ import copy
 import functools
 import io
 import json
+import re
 import statistics
 import struct
 import subprocess
@@ -359,6 +364,28 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def sass_summary(library, match: str = "cg_operator_tile"):
+    """{kernel: (SASS instructions, CALLs, index of the first global
+    load)} for each kernel of the shared ``library`` whose mangled name
+    holds ``match``, from ``cuobjdump -sass`` beside nvcc.  A CALL is a
+    subroutine such as a 64-bit integer divide."""
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    rows = {}
+    for function in sass.split("Function : ")[1:]:
+        name = function.split("\n", 1)[0].strip()
+        if match not in name:
+            continue
+        ins = [ln for ln in function.splitlines()
+               if re.search(r"/\*[0-9a-f]{4}\*/", ln) and ";" in ln]
+        rows[name] = (len(ins), sum(" CALL" in ln for ln in ins),
+                      next((i for i, ln in enumerate(ins) if "LDG" in ln),
+                           None))
+    return rows
+
+
 def card_rates(name: str):
     if name != H100_SXM:
         raise RuntimeError(f"no memory/compute rates known for {name!r}")
@@ -386,7 +413,18 @@ def cuda_time_ms(fn, samples: int = 20, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_time_ms(fn, calls: int = 20, windows: int = 5) -> float:
+def _kernel_records(prof):
+    """The CUDA kernel rows of a profile, without the spin kernel that
+    ``queued_times`` puts before a window: (records, summed us)."""
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin" not in e.key]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows))
+
+
+def device_time_ms(fn, calls: int = 20, windows: int = 5,
+                   one_kernel: bool = False) -> float:
     """Device time of one ``fn()``: the run time of the kernels it launches
     on the card (torch.profiler's CUDA activity), summed over ``calls``
     back-to-back calls and divided by ``calls``; the median of ``windows``
@@ -394,30 +432,92 @@ def device_time_ms(fn, calls: int = 20, windows: int = 5) -> float:
     host are not counted.  A window in which the profiler recorded no
     device activity at all (seen once on an H100, in a window whose
     neighbours recorded the same launches) is taken again, up to three
-    times the windows; if none records any, this raises."""
-    from torch.autograd import DeviceType
+    times the windows; if none records any, this raises.
+
+    The profiler can record fewer kernels than were launched: on an H100,
+    15 of 20 in every window late in a long run.  With ``one_kernel`` (each
+    call launches one kernel) a window's time is therefore the mean of the
+    kernels it recorded, not their sum over ``calls``, which read those
+    windows 25% low."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, short = [], 0
     for _ in range(3 * windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+        n, us = _kernel_records(prof)
         if us > 0:
-            times.append(us / 1e3 / calls)
+            times.append(us / 1e3 / (n if one_kernel else calls))
+            short += one_kernel and n < calls
         if len(times) == windows:
             break
+    if short:
+        _log(f"  {short} of {len(times)} profile windows recorded fewer "
+             "kernels than were launched; each is read as the mean of "
+             "those it recorded")
     if len(times) < windows:
         _log(f"  the profiler recorded device activity in {len(times)} of "
              f"{3 * windows} windows")
     if not times:
         raise RuntimeError("the profiler recorded no device activity")
     return statistics.median(times)
+
+
+# torch.cuda._sleep counts SM clock cycles; 2e9 a second is at least the
+# H100's boost clock (1.98 GHz), so a spin lasts at least the time asked
+SPIN_CYCLES_PER_S = 2e9
+
+
+def queued_times(fn, calls: int, windows: int = 5):
+    """(event ms, device ms) of one ``fn()``, a call that launches one
+    kernel, when ``calls`` calls run back to back on the card; medians over
+    ``windows`` windows.
+
+    Each window queues its calls behind a spin kernel
+    (``torch.cuda._sleep``) that lasts until the host has enqueued them
+    all, so the card never waits for the host between two calls: the
+    event time is the card's, from the first call's start to the last's
+    end, and anything a call leaves to the memory system (the write-back
+    of its dirty outputs from L2) falls inside the next calls.  The device
+    time is the mean of the kernels the profiler recorded, without the
+    spin (see ``device_time_ms``).  A window whose spin ended before the
+    host had queued every call is taken again with a spin twice as
+    long."""
+    from torch.profiler import ProfilerActivity, profile
+    spin_s, ev, dev, short = 0.002, [], [], 0
+    for _ in range(4 * windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+            spun = torch.cuda.Event()
+            spun.record()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            queued = not spun.query()
+            end.synchronize()
+        n, us = _kernel_records(prof)
+        if not queued:
+            spin_s *= 2
+        elif n > 0:
+            ev.append(start.elapsed_time(end) / calls)
+            dev.append(us / 1e3 / n)
+            short += n < calls
+        if len(ev) == windows:
+            if short:
+                _log(f"  {short} of {windows} queued windows recorded fewer "
+                     "kernels than were launched; each is read as the mean "
+                     "of those it recorded")
+            return statistics.median(ev), statistics.median(dev)
+    raise RuntimeError(f"{len(ev)} of {4 * windows} queued windows ran "
+                       "back to back with kernels recorded")
 
 
 def bound(nbytes: float, ops: float, mem_bw: float, f32_rate: float):
@@ -438,18 +538,21 @@ def _timing_line(label, rec, bound_ms, bound_by, nbytes, ops, extra=""):
          f"{100 * bound_ms / dev:.1f}% by device time")
 
 
-def time_kernel(enqueue, plain, library=None, plain_calls=None):
+def time_kernel(enqueue, plain, library=None, plain_calls=None,
+                one_kernel=False):
     """Event and device times of a kernel's enqueue closure, of its plain
     version and of the library call.  ``plain_calls``: time the plain
     version over this many calls a sample and window (5 samples, 3
     windows) instead of the kernel's 200 and 100, for a plain version of
-    tens of milliseconds."""
+    tens of milliseconds.  ``one_kernel``: the enqueue launches one kernel
+    (``device_time_ms``)."""
     if plain_calls is None:
         plain_ms, plain_dev = cuda_time_ms(plain), device_time_ms(plain)
     else:
         plain_ms = cuda_time_ms(plain, samples=5, calls=plain_calls)
         plain_dev = device_time_ms(plain, calls=plain_calls, windows=3)
-    return dict(ms=cuda_time_ms(enqueue), device_ms=device_time_ms(enqueue),
+    return dict(ms=cuda_time_ms(enqueue),
+                device_ms=device_time_ms(enqueue, one_kernel=one_kernel),
                 plain_ms=plain_ms, plain_device_ms=plain_dev,
                 library_ms=None if library is None else cuda_time_ms(library),
                 library_device_ms=None if library is None
@@ -672,7 +775,8 @@ def check_projection(device, mem_bw, f32_rate):
                                  f"{bad} points off, or repeats differ")
         enqueue, _ = pk.prepare_launch(p)
         rec = time_kernel(enqueue,
-                          lambda: pk.project_paraboloid_reference(p))
+                          lambda: pk.project_paraboloid_reference(p),
+                          one_kernel=True)
         k, L = ncomp - 1, p[0].numel()
         outside = int((2 * p[0] + (p[1:] ** 2).sum(0) > 0).sum())
         # per point 2k+2 for |b|^2 and the membership test; points outside
@@ -696,10 +800,14 @@ def check_projection(device, mem_bw, f32_rate):
 
 
 def cold_times(make_enqueue, nbytes):
-    """Event and device times of a kernel whose working set (``nbytes``)
-    fits in L2, measured cold: each call takes the next of enough input
-    and output sets (``make_enqueue(i)`` binds set i) that the data moved
-    between two uses of one set exceeds the L2 at least twice over."""
+    """Event and device times of a one-kernel call whose working set
+    (``nbytes``) fits in L2, measured cold: each call takes the next of
+    enough input and output sets (``make_enqueue(i)`` binds set i) that the
+    data moved between two uses of one set exceeds the L2 at least twice
+    over, and the calls run back to back behind a spin (``queued_times``),
+    so each pays for the write-back of the dirty outputs before it as a
+    chain of launches does, and a kernel record the profiler drops does
+    not count as a call that took no time."""
     sets = max(4, int(3 * L2_BYTES // nbytes) + 1)
     enqueues = [make_enqueue(i) for i in range(sets)]
     turn = [0]
@@ -708,8 +816,10 @@ def cold_times(make_enqueue, nbytes):
         enqueues[turn[0] % sets]()
         turn[0] += 1
 
-    return dict(cold_ms=cuda_time_ms(fn),
-                cold_device_ms=device_time_ms(fn, calls=5 * sets),
+    for _ in range(sets):
+        fn()
+    cold_ms, cold_device_ms = queued_times(fn, calls=5 * sets)
+    return dict(cold_ms=cold_ms, cold_device_ms=cold_device_ms,
                 cold_sets=sets)
 
 
@@ -756,7 +866,7 @@ def check_cg_operator(device, mem_bw, f32_rate):
                       ).abs().max())
     enqueue, _ = cgk.prepare_launch(x, r, eps)
     rec = time_kernel(enqueue, lambda: cgk.cg_operator_reference(x, r, eps),
-                      lambda: conv(x))
+                      lambda: conv(x), one_kernel=True)
     # per point: 3 axes x 3 (two adds, one multiply), 2 adds, 3 for the axpy
     ops = 14 * x.numel()
     nbytes = 2 * x.numel() * x.element_size()
@@ -773,11 +883,19 @@ def check_cg_operator(device, mem_bw, f32_rate):
 
 # The tile form of kernel #4 on the tiles of these splits of these fields:
 # 2x2 at the sweep shape (4 x points a thread), 2x2 with tx = 161 (one
-# point a thread), and tiles one line wide at the global edges
+# point a thread), tiles one line wide at the global edges; 1x2 and 2x1
+# (the (16, 240, 160) and (16, 120, 320) tiles); 3x3 with tx 106 / 108
+# (corner, edge and inner tiles on both paths); Nt = 2 with a tile one row
+# wide under a line; Nt = 5 with tx 12 / 24 and ty = 1 between two lines
 TILE_SPLITS = (
     ((16, 240, 320), (0, 120, 240), (0, 160, 320)),
     ((16, 240, 322), (0, 120, 240), (0, 161, 322)),
-    ((16, 240, 320), (0, 1, 120, 239, 240), (0, 1, 160, 319, 320)))
+    ((16, 240, 320), (0, 1, 120, 239, 240), (0, 1, 160, 319, 320)),
+    ((16, 240, 320), (0, 240), (0, 160, 320)),
+    ((16, 240, 320), (0, 120, 240), (0, 320)),
+    ((16, 240, 320), (0, 80, 160, 240), (0, 106, 214, 320)),
+    ((2, 48, 64), (0, 1, 24, 48), (0, 32, 64)),
+    ((5, 24, 36), (0, 11, 12, 24), (0, 12, 36)))
 TILE_SHAPE = (16, 120, 160)              # a 2x2 rank's tile of SHAPE
 
 
@@ -802,8 +920,10 @@ def check_cg_operator_tile(device, mem_bw, f32_rate):
     tiles put together bitwise the whole-field kernel, each tile within
     CG_ATOL of its plain version, repeats bitwise-equal; then timed on a
     TILE_SHAPE tile with all four lines (an inner rank's tile), warm and
-    cold.  No PyTorch call computes the tile operator: library_ms is
-    None."""
+    cold, beside the library call: the replicate-padded conv3d of #4 on
+    the tile padded once with its lines (outside the timed call; TF32
+    off), its inner (Nt, ty, tx) block."""
+    torch.backends.cudnn.allow_tf32 = False
     r, eps = 1.0, 1e-2
     worst = 0.0
     for shape, ys, xs in TILE_SPLITS:
@@ -839,9 +959,21 @@ def check_cg_operator_tile(device, mem_bw, f32_rate):
         return x, halos
 
     x, halos = tile_set(SEED + 5)
+    up, down, left, right = halos
+    # the tile and its four lines in one (Nt, ty + 2, tx + 2) block; its
+    # corners are read by no point of the inner block
+    padded = torch.zeros(x.shape[0], x.shape[1] + 2, x.shape[2] + 2,
+                         device=device)
+    padded[:, 1:-1, 1:-1] = x
+    padded[:, 0, 1:-1], padded[:, -1, 1:-1] = up, down
+    padded[:, 1:-1, 0], padded[:, 1:-1, -1] = left, right
+    conv = _conv3d_operator(r, eps, device)
+    conv_err = float((conv(padded)[:, 1:-1, 1:-1] - cgk.
+                      cg_operator_tile_reference(x, halos, r, eps)
+                      ).abs().max())
     enqueue, _ = cgk.prepare_tile_launch(x, halos, r, eps)
     rec = time_kernel(enqueue, lambda: cgk.cg_operator_tile_reference(
-        x, halos, r, eps))
+        x, halos, r, eps), lambda: conv(padded), one_kernel=True)
     Nt, ty, tx = TILE_SHAPE
     # the tile in and out, the four lines in, once each; 14 operations a
     # point as the whole-field kernel
@@ -850,11 +982,15 @@ def check_cg_operator_tile(device, mem_bw, f32_rate):
     bound_ms, bound_by = bound(nbytes, ops, mem_bw, f32_rate)
     _timing_line(f"cg_operator_tile {TILE_SHAPE} + 4 lines", rec, bound_ms,
                  bound_by, nbytes, ops)
+    _log(f"  library: replicate-padded conv3d on the padded tile "
+         f"{rec['library_ms']:.4f} ms by events, "
+         f"{rec['library_device_ms']:.4f} ms device (max |conv - plain| = "
+         f"{conv_err:.3e})")
     cold = cold_times(lambda i: cgk.prepare_tile_launch(
         *tile_set(SEED + 200 + 10 * i), r, eps)[0], nbytes)
     _log(f"  cg_operator_tile cold: {cold['cold_ms']:.4f} ms by events, "
          f"{cold['cold_device_ms']:.4f} ms device over {cold['cold_sets']} "
-         f"rotating sets; kernel at "
+         f"rotating sets, back to back; kernel at "
          f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound by cold "
          "device time")
     floor = launch_floor_ms(device)
@@ -862,9 +998,12 @@ def check_cg_operator_tile(device, mem_bw, f32_rate):
          f"device, beside the tile kernel's {rec['device_ms']:.4f} warm / "
          f"{cold['cold_device_ms']:.4f} cold and its {bound_ms:.6f} ms "
          f"bound; the larger of bound and floor: "
-         f"{max(bound_ms, floor):.4f} ms")
+         f"{max(bound_ms, floor):.4f} ms, the kernel at "
+         f"{100 * max(bound_ms, floor) / rec['device_ms']:.1f}% / "
+         f"{100 * max(bound_ms, floor) / cold['cold_device_ms']:.1f}% of it")
     return dict(rec, max_abs_err=worst, bound_ms=bound_ms,
-                bound_by=bound_by, launch_floor_device_ms=floor, **cold)
+                bound_by=bound_by, launch_floor_device_ms=floor,
+                library_max_abs_err=conv_err, **cold)
 
 
 def launch_floor_ms(device) -> float:
@@ -2141,7 +2280,7 @@ def lockstep_cg_operator(device, mem_bw, f32_rate):
          "50x the operand scale); each pair bitwise its single launch")
     enqueue, _ = cgk.prepare_launch(x, r, eps)
     rec = time_kernel(enqueue, lambda: cgk.cg_operator_reference(x, r, eps),
-                      plain_calls=2)
+                      plain_calls=2, one_kernel=True)
     single_ms, single_dev = _singles_ms(singles)
     ops = 14 * x.numel()
     nbytes = 2 * x.numel() * x.element_size()
@@ -3450,6 +3589,10 @@ def main() -> int:
         for ln in report.splitlines():
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 _log(f"  {ln.strip()}")
+        for name, (n, calls, ldg) in sass_summary(
+                _build.library_path()).items():
+            _log(f"  sass {name}: {n} instructions, {calls} CALL, first "
+                 f"global load at instruction {ldg}")
         _build.load_library()
 
     with Phase("3 kernel vs plain"):
@@ -3603,8 +3746,8 @@ def main() -> int:
                    cg_err, cg_recs["cg_operator_blocked"]),
              gspmd_launches=gspmd_launches["cg_operator_tile"],
              tile_device_ms=tile_rec["device_ms"]),
-        # #4's tile form, timed on a (16, 120, 160) tile with four lines;
-        # no library call computes it
+        # #4's tile form, timed on a (16, 120, 160) tile with four lines
+        # beside conv3d on the tile padded with them
         dict(entry("cg_operator_tile", "cg_operator.cu", 528,
                    gspmd_launches["cg_operator_tile"],
                    tile_rec["max_abs_err"], tile_rec),

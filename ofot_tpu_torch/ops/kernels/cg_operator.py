@@ -22,7 +22,9 @@ four lines next to the tile (``parallel/halo.py:edge_lines``): the SpMV of
 the tiled ``cg-pallas`` set (``parallel/gspmd.py``).  Its kernel
 evaluates the whole-field kernel's point expression (the shared
 ``csrc/cg_operator.cuh``), so the tiles' outputs put together are bitwise
-the whole-field launch's.
+the whole-field launch's; it runs one thread a group of 4 x points (or
+one) on a grid of the tile's own (plane, row, x) coordinates, with 32-bit
+offsets, so a tile holds fewer than 2^31 points.
 
 ``launches``, ``blocked_launches`` and ``tile_launches`` count the
 kernel's launches through :func:`cg_operator`, :func:`cg_operator_blocked`
@@ -184,6 +186,9 @@ def prepare_tile_launch(x: torch.Tensor, halos, r, reg_epsilon):
     _build.check_cuda(x, "cg_operator_tile")
     _build.check_operand("x", x, x)
     check_halos(x, halos)
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"a tile of {x.numel()} points: the kernel takes "
+                         "fewer than 2^31")
     for side, h in zip(SIDES, halos):
         if h is not None:
             _build.check_operand(side, h, h)

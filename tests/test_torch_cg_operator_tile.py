@@ -3,7 +3,11 @@ tiled ``cg-pallas`` set, on the CPU.
 
 A seeded (4, 8, 12) field is split into tiles along y and x, evenly as a
 (2, 2), (1, 4) or (4, 1) mesh splits it, and unevenly with tiles one line
-wide at the global edges and in the middle.  Each tile goes through the
+wide at the global edges and in the middle.  Fields of their own shape
+give the tile shapes the CUDA kernel's index scheme treats apart: corner,
+edge and inner tiles of 3x3 splits with tx not a multiple of 4 (its
+4-point groups), Nt = 2 with a tile one row wide under a line, and odd
+Nt (3, 5).  Each tile goes through the
 plain tile operator with the lines next to it (None on a global edge); put
 back together, the tiles are bitwise ``cg_operator_reference`` of the
 whole field, at float32 and float64.  At float32 they also lie within
@@ -28,13 +32,25 @@ from ofot_tpu_torch.parallel.halo import ShardedOps
 from ofot_tpu_torch.solvers import foto
 
 FIELD = np.random.default_rng(53).standard_normal((4, 8, 12))
-# (y cuts, x cuts) of the (8, 12) plane
+# (field shape, y cuts, x cuts)
 SPLITS = {
-    "2x2": ((0, 4, 8), (0, 6, 12)),
-    "1x4": ((0, 8), (0, 3, 6, 9, 12)),
-    "4x1": ((0, 2, 4, 6, 8), (0, 12)),
-    "one-line edges": ((0, 1, 7, 8), (0, 1, 5, 6, 11, 12)),
+    "2x2": (FIELD.shape, (0, 4, 8), (0, 6, 12)),
+    "1x4": (FIELD.shape, (0, 8), (0, 3, 6, 9, 12)),
+    "4x1": (FIELD.shape, (0, 2, 4, 6, 8), (0, 12)),
+    "one-line edges": (FIELD.shape, (0, 1, 7, 8), (0, 1, 5, 6, 11, 12)),
+    "one-line middle": (FIELD.shape, (0, 3, 4, 8), (0, 5, 6, 12)),
+    "3x3, tx 7 and 8": ((3, 9, 22), (0, 3, 6, 9), (0, 7, 14, 22)),
+    "3x3, tx 4 and 8, Nt 5": ((5, 12, 16), (0, 4, 8, 12), (0, 4, 12, 16)),
+    "Nt 2, ty 1 under a line": ((2, 8, 12), (0, 1, 4, 8), (0, 6, 12)),
+    "Nt 5, tx 5 and 9": ((5, 10, 14), (0, 5, 10), (0, 5, 14)),
 }
+
+
+def field(shape):
+    """FIELD, or a seeded field of another shape."""
+    if shape == FIELD.shape:
+        return FIELD
+    return np.random.default_rng(sum(shape)).standard_normal(shape)
 
 
 def tiles(f, ys, xs):
@@ -64,8 +80,9 @@ def assembled(f, ys, xs, r, eps):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("r,eps", [(1.0, 1e-2), (0.7, 1e-3)])
 def test_tiles_assemble_to_the_whole_field_bitwise(split, dtype, r, eps):
-    f = torch.from_numpy(FIELD).to(dtype)
-    got = assembled(f, *SPLITS[split], r, eps)
+    shape, ys, xs = SPLITS[split]
+    f = torch.from_numpy(field(shape)).to(dtype)
+    got = assembled(f, ys, xs, r, eps)
     assert torch.equal(got, cgk.cg_operator_reference(f, r, eps))
 
 
@@ -81,10 +98,15 @@ def _interpret_mode(monkeypatch):
 
 
 @pytest.mark.usefixtures("_interpret_mode")
-@pytest.mark.parametrize("split", ["2x2", "one-line edges"])
+@pytest.mark.parametrize("split", ["2x2", "one-line edges",
+                                   "one-line middle", "3x3, tx 7 and 8",
+                                   "3x3, tx 4 and 8, Nt 5",
+                                   "Nt 2, ty 1 under a line",
+                                   "Nt 5, tx 5 and 9"])
 def test_tiles_match_the_pallas_kernel(split):
-    x = FIELD.astype(np.float32)
-    got = assembled(torch.from_numpy(x), *SPLITS[split], 0.7, 1e-3)
+    shape, ys, xs = SPLITS[split]
+    x = field(shape).astype(np.float32)
+    got = assembled(torch.from_numpy(x), ys, xs, 0.7, 1e-3)
     want = np.asarray(kernels.cg_operator_pallas_blocked(jnp.asarray(x),
                                                          0.7, 1e-3))
     assert float(np.abs(got.numpy() - want).max()) < 1e-5
@@ -92,7 +114,7 @@ def test_tiles_match_the_pallas_kernel(split):
 
 def test_cpu_tiles_take_the_plain_version_without_counting():
     f = torch.from_numpy(FIELD)
-    where, t, halos = next(tiles(f, *SPLITS["2x2"]))
+    where, t, halos = next(tiles(f, *SPLITS["2x2"][1:]))
     before = (cgk.launches, cgk.blocked_launches, cgk.tile_launches)
     got = cgk.cg_operator_tile(t, halos, 1.0, 1e-2)
     assert torch.equal(got, cgk.cg_operator_tile_reference(t, halos, 1.0,

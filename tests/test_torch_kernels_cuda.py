@@ -29,9 +29,11 @@ all-NaN flow warps to NaN pixels on the card, with no device-side assert.
 The shapes of the stepA operator and the spectral solve cover their tile
 edges and both copy widths (16-byte copies where a row is 16-byte aligned,
 4-byte copies otherwise).  The tile form of the stepA operator, on the
-tiles of (2, 2), (1, 4) and (4, 1) splits and of a split with tiles one
-line wide, put together, is bitwise the whole-field kernel, on both its
-paths (4 x points a thread where tx % 4 == 0, one point otherwise).
+tiles of (2, 2), (1, 4), (4, 1), (1, 2), (2, 1) and (3, 3) splits, of
+splits with tiles one line wide, Nt = 2 and odd Nt, put together, is
+bitwise the whole-field kernel, on both its paths (4 x points a thread
+where tx % 4 == 0, one point otherwise); its C entry refuses a tile of
+2^31 points or more before any launch.
 
 The solver loops run on the device loop by default on the card (captured
 graphs of K iterations, ``solvers/device_loop.py``): each is held bitwise
@@ -234,6 +236,16 @@ def _tiles(f, ys, xs):
     ((16, 240, 320), (0, 1, 120, 239, 240), (0, 1, 160, 319, 320)),
     ((5, 17, 23), (0, 17), (0, 6, 12, 18, 23)),         # 1x4
     ((5, 17, 23), (0, 4, 8, 12, 17), (0, 23)),          # 4x1
+    ((16, 240, 320), (0, 240), (0, 160, 320)),          # 1x2
+    ((16, 240, 320), (0, 120, 240), (0, 320)),          # 2x1
+    ((16, 240, 320), (0, 80, 160, 240), (0, 106, 214, 320)),    # 3x3
+    ((4, 8, 12), (0, 3, 4, 8), (0, 5, 6, 12)),          # one line between two
+    ((3, 9, 22), (0, 3, 6, 9), (0, 7, 14, 22)),         # 3x3, tx 7 and 8
+    ((5, 12, 16), (0, 4, 8, 12), (0, 4, 12, 16)),       # 3x3, tx 4 and 8
+    ((2, 8, 12), (0, 1, 4, 8), (0, 6, 12)),             # Nt 2, ty 1
+    ((5, 10, 14), (0, 5, 10), (0, 5, 14)),              # Nt 5, tx 5 and 9
+    ((2, 48, 64), (0, 1, 24, 48), (0, 32, 64)),
+    ((5, 24, 36), (0, 11, 12, 24), (0, 12, 36)),
 ])
 def test_cg_operator_tile_assembles_to_the_whole_kernel_on_card(
         cuda_device, shape, ys, xs):
@@ -256,6 +268,21 @@ def test_cg_operator_tile_assembles_to_the_whole_kernel_on_card(
     torch.cuda.synchronize()
     assert cgk.tile_launches == before + n
     assert torch.equal(out, whole)
+
+
+@pytest.mark.cuda
+def test_cg_operator_tile_refuses_2_31_points_before_any_launch(cuda_device):
+    """The C entry takes 32-bit offsets: a tile of 2^31 points or more is
+    refused before any launch (null pointers, nothing allocated), and a
+    tile of 2^31 - 1 points would pass that check."""
+    from ofot_tpu_torch.ops.kernels import _build
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in ((2, 32768, 32768), (2, 65536, 16384), (3, 46341, 15447)):
+        assert np.prod(shape, dtype=np.int64) >= 2 ** 31
+        assert lib.ofot_cg_operator_tile(None, None, *shape, None, None,
+                                         None, None, 1.0, 1e-2, stream) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
