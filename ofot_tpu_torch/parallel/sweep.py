@@ -48,6 +48,7 @@ from ofot_tpu_torch.parallel import launch, multihost
 from ofot_tpu_torch.parallel.mesh import make_mesh, rank_device
 from ofot_tpu_torch.solvers import flow_extract, foto, gn, lockstep, wfr
 from ofot_tpu_torch.solvers.cg import CGResult
+from ofot_tpu_torch.utils import trace
 
 
 def group_by_shape(pairs):
@@ -123,9 +124,10 @@ def _map_pairs(one, f1s, f2s):
 
 def _flows(phi):
     """Flow extraction of a (B, Nt, Ny, Nx) potential, pair by pair (it
-    runs once a pair) -> stacked (u, v, m)."""
-    outs = [flow_extract.flow_from_potential(p) for p in phi]
-    return tuple(torch.stack(f) for f in zip(*outs))
+    runs once a pair) -> stacked (u, v, m).  Span ``lockstep.extract``."""
+    with trace.annotate("lockstep.extract"):
+        outs = [flow_extract.flow_from_potential(p) for p in phi]
+        return tuple(torch.stack(f) for f in zip(*outs))
 
 
 def _diag(**fields):
@@ -218,90 +220,91 @@ def solve_batch_full(algo: str, f1s, f2s, mesh=None,
 
     With a ``mesh``: collective, every rank with the whole (padded) batch;
     each solves its ``data`` block on the mesh's device (``device`` is not
-    read) and returns the whole batch's results."""
-    _check_mode(batch_mode)
-    if mesh is not None:
-        b1, b2 = _block(mesh, np.asarray(f1s), np.asarray(f2s))
-        u, v, m, diag = solve_batch_full(
-            algo, b1, b2, None, foto_params, gn_params, wfr_params,
-            sinkhorn_params, batch_mode, device=mesh.device)
-        return (*(_gather_blocks(mesh, t) for t in (u, v, m)),
-                _gather_diag(mesh, diag))
-    if algo not in ("foto", "WFR", "sinkhorn", "GN"):
-        # every algo must dispatch explicitly — an unknown name silently
-        # falling through to GN would write wrong flows into <algo>.flo
-        raise ValueError(f"unknown batch algo {algo!r} "
-                         "(expected foto, GN, WFR, or sinkhorn)")
-    sp = dict(sinkhorn_params or {})
-    if algo == "sinkhorn":
-        th = sp.get("theta")
-        if th is not None and not 0.0 < float(th) < 2.0:
-            raise ValueError(f"sinkhorn theta={th} outside the "
-                             "convergent range (0, 2)")
-        stab = sp.get("stabilizer")
-        if stab is not None and stab not in ("matmul", "exact"):
-            # 'auto' is a CLI-level retry policy, not a solver mode —
-            # in batch mode the pipeline's escalation IS the auto path
-            raise ValueError(f"batch sinkhorn stabilizer={stab!r} must "
-                             "be 'matmul' or 'exact' (the pipeline's "
-                             "per-sequence escalation provides 'auto')")
-    dev = torch_device(device)
-    f1s = torch.as_tensor(f1s)
-    check_kernel_dtype(algo, foto_params if algo == "foto" else wfr_params,
-                       dev, f1s.dtype)
-    f1s = f1s.to(dev)
-    f2s = torch.as_tensor(f2s, device=dev)
+    read) and returns the whole batch's results.  Span ``sweep.batch``."""
+    with trace.annotate("sweep.batch"):
+        _check_mode(batch_mode)
+        if mesh is not None:
+            b1, b2 = _block(mesh, np.asarray(f1s), np.asarray(f2s))
+            u, v, m, diag = solve_batch_full(
+                algo, b1, b2, None, foto_params, gn_params, wfr_params,
+                sinkhorn_params, batch_mode, device=mesh.device)
+            return (*(_gather_blocks(mesh, t) for t in (u, v, m)),
+                    _gather_diag(mesh, diag))
+        if algo not in ("foto", "WFR", "sinkhorn", "GN"):
+            # every algo must dispatch explicitly — an unknown name silently
+            # falling through to GN would write wrong flows into <algo>.flo
+            raise ValueError(f"unknown batch algo {algo!r} "
+                             "(expected foto, GN, WFR, or sinkhorn)")
+        sp = dict(sinkhorn_params or {})
+        if algo == "sinkhorn":
+            th = sp.get("theta")
+            if th is not None and not 0.0 < float(th) < 2.0:
+                raise ValueError(f"sinkhorn theta={th} outside the "
+                                 "convergent range (0, 2)")
+            stab = sp.get("stabilizer")
+            if stab is not None and stab not in ("matmul", "exact"):
+                # 'auto' is a CLI-level retry policy, not a solver mode —
+                # in batch mode the pipeline's escalation IS the auto path
+                raise ValueError(f"batch sinkhorn stabilizer={stab!r} must "
+                                 "be 'matmul' or 'exact' (the pipeline's "
+                                 "per-sequence escalation provides 'auto')")
+        dev = torch_device(device)
+        f1s = torch.as_tensor(f1s)
+        check_kernel_dtype(algo, foto_params if algo == "foto" else wfr_params,
+                           dev, f1s.dtype)
+        f1s = f1s.to(dev)
+        f2s = torch.as_tensor(f2s, device=dev)
 
-    fp = dict(foto_params or {})
-    wp = dict(wfr_params or {})
-    gp = dict(gn_params or {})
-    if algo == "foto":
-        fp.setdefault("Nt", 16)
-        fp["ops"] = _resolved_ops("foto", fp, dev)
-    elif algo == "WFR":
-        # resolve delta ONCE so the solve and the growth extraction can
-        # never drift apart on the default
-        wp.setdefault("delta", 10.0)
-        wp.setdefault("Nt", 16)
-        wp["ops"] = _resolved_ops("WFR", wp, dev)
-    if batch_mode == "vmap":
-        return _lockstep_full(algo, f1s, f2s, fp, wp, sp, gp)
+        fp = dict(foto_params or {})
+        wp = dict(wfr_params or {})
+        gp = dict(gn_params or {})
+        if algo == "foto":
+            fp.setdefault("Nt", 16)
+            fp["ops"] = _resolved_ops("foto", fp, dev)
+        elif algo == "WFR":
+            # resolve delta ONCE so the solve and the growth extraction can
+            # never drift apart on the default
+            wp.setdefault("delta", 10.0)
+            wp.setdefault("Nt", 16)
+            wp["ops"] = _resolved_ops("WFR", wp, dev)
+        if batch_mode == "vmap":
+            return _lockstep_full(algo, f1s, f2s, fp, wp, sp, gp)
 
-    if algo == "foto":
-        Nt = fp.pop("Nt")
+        if algo == "foto":
+            Nt = fp.pop("Nt")
 
-        def one(p, q):
-            st = foto.solve_potential(p, q, Nt, **fp)
-            u, v, m = flow_extract.flow_from_potential(st.phi)
-            return u, v, m, {"iterations": st.iteration,
-                             "inner_iterations": st.cg_iterations,
-                             "crit": float(st.crit)}
-    elif algo == "WFR":
-        Nt = wp.pop("Nt")
+            def one(p, q):
+                st = foto.solve_potential(p, q, Nt, **fp)
+                u, v, m = flow_extract.flow_from_potential(st.phi)
+                return u, v, m, {"iterations": st.iteration,
+                                 "inner_iterations": st.cg_iterations,
+                                 "crit": float(st.crit)}
+        elif algo == "WFR":
+            Nt = wp.pop("Nt")
 
-        def one(p, q):
-            st = wfr.solve_potential(p, q, Nt, **wp)
-            u, v, m = flow_extract.flow_from_potential(st.phi)
-            g = wfr.growth_from_state(st, wp["delta"])
-            return u, v, wfr.combined_luminosity(m, g), {
-                "iterations": st.iteration, "crit": float(st.crit)}
-    elif algo == "sinkhorn":
-        from ofot_tpu_torch.ops import operators
-        from ofot_tpu_torch.solvers import sinkhorn
+            def one(p, q):
+                st = wfr.solve_potential(p, q, Nt, **wp)
+                u, v, m = flow_extract.flow_from_potential(st.phi)
+                g = wfr.growth_from_state(st, wp["delta"])
+                return u, v, wfr.combined_luminosity(m, g), {
+                    "iterations": st.iteration, "crit": float(st.crit)}
+        elif algo == "sinkhorn":
+            from ofot_tpu_torch.ops import operators
+            from ofot_tpu_torch.solvers import sinkhorn
 
-        def one(p, q):
-            res = sinkhorn.flow(p, q, **sp)
-            m = -operators.div2d(res.u, res.v, bc="D")
-            return res.u, res.v, m, {
-                "iterations": res.iterations,
-                "marginal_error": float(res.marginal_error)}
-    else:
-        def one(p, q):
-            res = gn.solve_fields(p, q, **gp)
-            return res.u, res.v, res.m, {
-                "inner_iterations": res.cg.iterations,
-                "converged": res.cg.converged}
-    return _map_pairs(one, f1s, f2s)
+            def one(p, q):
+                res = sinkhorn.flow(p, q, **sp)
+                m = -operators.div2d(res.u, res.v, bc="D")
+                return res.u, res.v, m, {
+                    "iterations": res.iterations,
+                    "marginal_error": float(res.marginal_error)}
+        else:
+            def one(p, q):
+                res = gn.solve_fields(p, q, **gp)
+                return res.u, res.v, res.m, {
+                    "inner_iterations": res.cg.iterations,
+                    "converged": res.cg.converged}
+        return _map_pairs(one, f1s, f2s)
 
 
 def solve_foto_batch(rho0s, rhoTs, Nt: int, mesh=None, *, device="cuda",

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ofot_tpu_torch.solvers import device_loop
+from ofot_tpu_torch.utils import trace
 
 
 class CGResult(NamedTuple):
@@ -98,33 +99,35 @@ def cg(A: Callable, b: torch.Tensor, *,
     # scipy: ||r|| <= max(rtol*||b||, atol)
     thresh2 = torch.clamp(rtol * rtol * bnorm2, min=atol * atol)
 
-    if device_loop.resolve(loop, b.device) == "device":
-        s = _device_cg(A, precond, dot, M, _CGState(
-            x, r, p, rz, rnorm2, torch.zeros((), dtype=torch.int64,
-                                             device=b.device)),
-            thresh2, maxiter, key, bound, lambda s, like: s)
-        k, converged = (int(v) for v in torch.stack(
-            [s.k, (s.rnorm2 <= thresh2).to(s.k.dtype)]).tolist())
-        return CGResult(x=s.x, iterations=k, residual=torch.sqrt(s.rnorm2),
-                        converged=bool(converged))
+    with trace.annotate("cg.loop"):
+        if device_loop.resolve(loop, b.device) == "device":
+            s = _device_cg(A, precond, dot, M, _CGState(
+                x, r, p, rz, rnorm2, torch.zeros((), dtype=torch.int64,
+                                                 device=b.device)),
+                thresh2, maxiter, key, bound, lambda s, like: s)
+            k, converged = (int(v) for v in torch.stack(
+                [s.k, (s.rnorm2 <= thresh2).to(s.k.dtype)]).tolist())
+            return CGResult(x=s.x, iterations=k,
+                            residual=torch.sqrt(s.rnorm2),
+                            converged=bool(converged))
 
-    k = 0
-    while k < maxiter and bool(rnorm2 > thresh2):
-        q = A(p)
-        pq = dot(p, q)
-        alpha = rz / pq
-        x = x + alpha * p
-        r = r - alpha * q
-        z = precond(r)
-        rz_new = dot(r, z)
-        rnorm2 = rz_new if M is None else dot(r, r)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        k += 1
+        k = 0
+        while k < maxiter and bool(rnorm2 > thresh2):
+            q = A(p)
+            pq = dot(p, q)
+            alpha = rz / pq
+            x = x + alpha * p
+            r = r - alpha * q
+            z = precond(r)
+            rz_new = dot(r, z)
+            rnorm2 = rz_new if M is None else dot(r, r)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
+            k += 1
 
-    return CGResult(x=x, iterations=k, residual=torch.sqrt(rnorm2),
-                    converged=bool(rnorm2 <= thresh2))
+        return CGResult(x=x, iterations=k, residual=torch.sqrt(rnorm2),
+                        converged=bool(rnorm2 <= thresh2))
 
 
 def _per_pair(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -164,30 +167,33 @@ def cg_batched(A: Callable, b: torch.Tensor, *,
     thresh2 = torch.clamp(rtol * rtol * dot(b, b), min=atol * atol)
     k = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
 
-    if device_loop.resolve(loop, b.device) == "device":
-        s = _device_cg(A, precond, dot, M, _CGState(x, r, p, rz, rnorm2, k),
-                       thresh2, maxiter, key, bound, _per_pair)
-        return CGResult(x=s.x, iterations=s.k, residual=torch.sqrt(s.rnorm2),
-                        converged=s.rnorm2 <= thresh2)
+    with trace.annotate("cg.loop"):
+        if device_loop.resolve(loop, b.device) == "device":
+            s = _device_cg(A, precond, dot, M,
+                           _CGState(x, r, p, rz, rnorm2, k), thresh2,
+                           maxiter, key, bound, _per_pair)
+            return CGResult(x=s.x, iterations=s.k,
+                            residual=torch.sqrt(s.rnorm2),
+                            converged=s.rnorm2 <= thresh2)
 
-    while True:
-        running = (k < maxiter) & (rnorm2 > thresh2)
-        if not bool(running.any()):
-            break
-        q = A(p)
-        alpha = _per_pair(rz / dot(p, q), p)
-        r_new = r - alpha * q
-        z = precond(r_new)
-        rz_new = dot(r_new, z)
-        rnorm2_new = rz_new if M is None else dot(r_new, r_new)
-        beta = _per_pair(rz_new / rz, p)
-        keep = _per_pair(running, p)
-        x = torch.where(keep, x + alpha * p, x)
-        r = torch.where(keep, r_new, r)
-        p = torch.where(keep, z + beta * p, p)
-        rz = torch.where(running, rz_new, rz)
-        rnorm2 = torch.where(running, rnorm2_new, rnorm2)
-        k = k + running.to(k.dtype)
+        while True:
+            running = (k < maxiter) & (rnorm2 > thresh2)
+            if not bool(running.any()):
+                break
+            q = A(p)
+            alpha = _per_pair(rz / dot(p, q), p)
+            r_new = r - alpha * q
+            z = precond(r_new)
+            rz_new = dot(r_new, z)
+            rnorm2_new = rz_new if M is None else dot(r_new, r_new)
+            beta = _per_pair(rz_new / rz, p)
+            keep = _per_pair(running, p)
+            x = torch.where(keep, x + alpha * p, x)
+            r = torch.where(keep, r_new, r)
+            p = torch.where(keep, z + beta * p, p)
+            rz = torch.where(running, rz_new, rz)
+            rnorm2 = torch.where(running, rnorm2_new, rnorm2)
+            k = k + running.to(k.dtype)
 
-    return CGResult(x=x, iterations=k, residual=torch.sqrt(rnorm2),
-                    converged=rnorm2 <= thresh2)
+        return CGResult(x=x, iterations=k, residual=torch.sqrt(rnorm2),
+                        converged=rnorm2 <= thresh2)

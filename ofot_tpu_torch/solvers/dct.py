@@ -50,6 +50,7 @@ import torch
 
 from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.solvers.lockstep import PerPair
+from ofot_tpu_torch.utils import trace
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
@@ -299,12 +300,14 @@ class _AxisTransform:
 class SeparableDCT:
     """The separable DCT over the trailing ``len(ns)`` axes of fields of
     one shape, dtype and device, each axis routed by ``modes`` (resolved
-    once by the caller; None = the solve-path routes of ``device``)."""
+    once by the caller; None = the solve-path routes of ``device``).  Each
+    build makes its matrices and uploads them: counter ``dct.builds``."""
 
     def __init__(self, ns, dtype, device, modes=None):
         self.modes = tuple(modes or _solve_modes(ns, device))
         self.axes = [_AxisTransform(n, m, dtype, device)
                      for n, m in zip(ns, self.modes)]
+        trace.count("dct.builds")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = len(self.axes)

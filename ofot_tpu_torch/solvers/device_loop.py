@@ -59,6 +59,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ofot_tpu_torch.ops import kernels
+from ofot_tpu_torch.utils.trace import annotate
 
 # Iterations per block (K).  K = 1 reads the card every iteration; from
 # K = 4 on, an ALG2 iteration costs the same on the card, while the
@@ -152,6 +153,12 @@ class _Graph:
 
     def __init__(self, fn, warmup, state, args, iters: int):
         self.fn, self.iters = fn, iters      # fn keeps its closure alive
+        with annotate("device_loop.capture"):
+            self._capture(warmup, state, args)
+
+    def _capture(self, warmup, state, args) -> None:
+        """The warm-up on the loop's own stream, then the capture."""
+        fn = self.fn
         device = state[0].device
         current = torch.cuda.current_stream(device)
         self.state = [t.clone() for t in state]
@@ -321,21 +328,26 @@ def while_loop(step: Callable, running: Callable, state: NamedTuple,
     :func:`runner`."""
     K = BLOCK
     cls = type(state)
-    if not bool(running(state, *args).any()):
+    with annotate("device_loop.flag_read"):
+        run = bool(running(state, *args).any())
+    if not run:
         return state
     body = _block(step, running, K, cls, trace)
     r = runner(body, state, args,
                key=None if key is None else (key, trace is not None), iters=K,
                warmup=_block(step, running, 1, cls, trace), bound=bound)
     while True:
-        outs = r.replay()
-        if trace is not None:
-            ran = outs[1].tolist()
-            recs = [t.tolist() for t in outs[2:]]
-            for i, flag in enumerate(ran):
-                if flag:
-                    show(*(rec[i] for rec in recs))
-        if not bool(outs[0]):
+        with annotate("device_loop.launch"):
+            outs = r.replay()
+        with annotate("device_loop.flag_read"):
+            if trace is not None:
+                ran = outs[1].tolist()
+                recs = [t.tolist() for t in outs[2:]]
+                for i, flag in enumerate(ran):
+                    if flag:
+                        show(*(rec[i] for rec in recs))
+            run = bool(outs[0])
+        if not run:
             _tally(stats.kernel_spare,
                    dict.fromkeys(getattr(r, "launches", ()), K - 1))
             return cls(*r.result())
@@ -361,11 +373,13 @@ def fori_loop(step: Callable, state: NamedTuple, n: int, args=(), *,
     if full:
         r = runner(body(K), state, args, key=key, iters=K, warmup=body(1))
         for _ in range(full):
-            r.replay()
+            with annotate("device_loop.launch"):
+                r.replay()
         state = cls(*r.result())
     if rest:
         r = runner(body(rest), state, args, key=key, iters=rest,
                    warmup=body(1))
-        r.replay()
+        with annotate("device_loop.launch"):
+            r.replay()
         state = cls(*r.result())
     return state

@@ -72,6 +72,7 @@ from ofot_tpu_torch.ops.projection import (project_paraboloid,
 from ofot_tpu_torch.solvers import cg as cg_mod
 from ofot_tpu_torch.solvers import dct, device_loop, flow_extract, lockstep
 from ofot_tpu_torch.solvers.lockstep import PerPair, kernel_r
+from ofot_tpu_torch.utils import trace
 
 
 def r_key(r):
@@ -448,24 +449,26 @@ def run_alg2(state, rho0, rhoT, iterate, *, max_it, verbose, mode, ops,
     whose stepA has no inner loop: the device loop, its graph cached under
     ``key``, the counters int64 tensors during the loop and ints after it,
     and the verbose lines printed from each block's records.  Otherwise
-    one ``done`` read per iteration (a CG stepA's own loop on ``mode``)."""
-    if mode == "host" or not ops.alg2_on_device:
-        while state.iteration < max_it and not bool(state.done):
-            state = iterate(state, rho0, rhoT, mode, verbose)
-        return state
+    one ``done`` read per iteration (a CG stepA's own loop on ``mode``).
+    Span ``alg2.loop``, ended by the counters' read."""
+    with trace.annotate("alg2.loop"):
+        if mode == "host" or not ops.alg2_on_device:
+            while state.iteration < max_it and not bool(state.done):
+                state = iterate(state, rho0, rhoT, mode, verbose)
+            return state
 
-    def count(n):
-        return torch.tensor(n, dtype=torch.int64, device=rho0.device)
+        def count(n):
+            return torch.tensor(n, dtype=torch.int64, device=rho0.device)
 
-    state = state._replace(iteration=count(state.iteration),
-                           cg_iterations=count(state.cg_iterations))
-    state = device_loop.while_loop(
-        lambda s, a, b: iterate(s, a, b, "device", False),
-        lambda s, a, b: ~s.done & (s.iteration < max_it),
-        state, (rho0, rhoT), key=(key, max_it),
-        **_verbose_lines(verbose, max_it))
-    it, cg = torch.stack([state.iteration, state.cg_iterations]).tolist()
-    return state._replace(iteration=it, cg_iterations=cg)
+        state = state._replace(iteration=count(state.iteration),
+                               cg_iterations=count(state.cg_iterations))
+        state = device_loop.while_loop(
+            lambda s, a, b: iterate(s, a, b, "device", False),
+            lambda s, a, b: ~s.done & (s.iteration < max_it),
+            state, (rho0, rhoT), key=(key, max_it),
+            **_verbose_lines(verbose, max_it))
+        it, cg = torch.stack([state.iteration, state.cg_iterations]).tolist()
+        return state._replace(iteration=it, cg_iterations=cg)
 
 
 def alg2_loop(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
@@ -605,11 +608,14 @@ def solve(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3, reg_epsilon=1e-3,
           init: FotoState | None = None, loop: str = "auto") -> FotoResult:
     """Full FOTO solve: ALG2 on the potential, then flow extraction
     (trajectory integration + luminosity), the reference's
-    ``benamou_brenier.solve`` -> (u, v, m) contract."""
-    state = solve_potential(
-        rho0, rhoT, Nt, r=r, convergence_tol=convergence_tol,
-        reg_epsilon=reg_epsilon, max_it=max_it, cg_rtol=cg_rtol,
-        cg_maxiter=cg_maxiter, verbose=verbose, ops=ops,
-        admm_alpha=admm_alpha, auto_r=auto_r, init=init, loop=loop)
-    u, v, m = flow_extract.flow_from_potential(state.phi)
-    return FotoResult(u=u, v=v, m=m, state=state)
+    ``benamou_brenier.solve`` -> (u, v, m) contract.  Span ``foto.solve``
+    around ``alg2.loop`` and ``foto.extract``."""
+    with trace.annotate("foto.solve"):
+        state = solve_potential(
+            rho0, rhoT, Nt, r=r, convergence_tol=convergence_tol,
+            reg_epsilon=reg_epsilon, max_it=max_it, cg_rtol=cg_rtol,
+            cg_maxiter=cg_maxiter, verbose=verbose, ops=ops,
+            admm_alpha=admm_alpha, auto_r=auto_r, init=init, loop=loop)
+        with trace.annotate("foto.extract"):
+            u, v, m = flow_extract.flow_from_potential(state.phi)
+        return FotoResult(u=u, v=v, m=m, state=state)

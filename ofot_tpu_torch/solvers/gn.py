@@ -47,6 +47,7 @@ import torch
 from ofot_tpu_torch.ops import operators, stencils
 from ofot_tpu_torch.solvers import dct
 from ofot_tpu_torch.solvers.cg import CGResult, cg, cg_batched
+from ofot_tpu_torch.utils import trace
 
 
 class GNResult(NamedTuple):
@@ -172,21 +173,24 @@ def solve_fields(f1, f2, alpha=0.1, lambda_=0.2, rtol=1e-10, maxiter=5000,
 
     ``precond``: "spectral" (DCT inverse of smoothness + mean data — a few
     dozen CG steps) or "jacobi" (pointwise Sherman–Morrison 3x3 blocks).
-    ``loop``: the CG's loop, "device", "host" or "auto" (``cg.cg``)."""
-    fx, fy = image_gradients(f2)
-    ft = f2 - f1
+    ``loop``: the CG's loop, "device", "host" or "auto" (``cg.cg``).
+    Span ``gn.solve`` around ``gn.setup`` (gradients, operator,
+    preconditioner, right-hand side) and the CG's ``cg.loop``."""
+    with trace.annotate("gn.solve"):
+        with trace.annotate("gn.setup"):
+            fx, fy = image_gradients(f2)
+            ft = f2 - f1
+            A, M_jac = make_operator(f2, alpha, lambda_)
+            M = (make_spectral_preconditioner(f2, alpha, lambda_)
+                 if precond == "spectral" else M_jac)
+            b = torch.stack([-fx * ft, -fy * ft, f2 * ft], dim=-3)
 
-    A, M_jac = make_operator(f2, alpha, lambda_)
-    M = (make_spectral_preconditioner(f2, alpha, lambda_)
-         if precond == "spectral" else M_jac)
-    b = torch.stack([-fx * ft, -fy * ft, f2 * ft], dim=-3)
-
-    solver = cg_batched if f2.dim() == 3 else cg
-    res = solver(A, b, rtol=rtol, maxiter=maxiter, M=M, loop=loop,
-                 key=("gn", float(alpha), float(lambda_), precond),
-                 bound=A.tensors + M.tensors)
-    u, v, m = res.x.unbind(-3)
-    return GNResult(u=u, v=v, m=m, cg=res)
+        solver = cg_batched if f2.dim() == 3 else cg
+        res = solver(A, b, rtol=rtol, maxiter=maxiter, M=M, loop=loop,
+                     key=("gn", float(alpha), float(lambda_), precond),
+                     bound=A.tensors + M.tensors)
+        u, v, m = res.x.unbind(-3)
+        return GNResult(u=u, v=v, m=m, cg=res)
 
 
 class GLLOpticalFlow:

@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ofot_tpu_torch.solvers import device_loop
+from ofot_tpu_torch.utils.trace import annotate
 
 
 class PerPair:
@@ -84,20 +85,21 @@ def run(state: NamedTuple, step: Callable, max_it: int, args=(), *,
     ``key`` on cuda, with ``args`` its tensor inputs), ``"host"`` reads
     the flag every iteration; ``"auto"`` is ``"device"`` on cuda.  With
     ``trace``/``show`` the device form prints what the step would have
-    printed (``device_loop.while_loop``)."""
+    printed (``device_loop.while_loop``).  Span ``lockstep.loop``."""
     def running(s, *a):
         return ~s.done & (s.iteration < max_it)
 
-    if device_loop.resolve(loop, state.done.device) == "device":
-        return device_loop.while_loop(
-            step, running, state, args,
-            key=None if key is None else ("lockstep", key, max_it),
-            trace=trace, show=show)
-    while True:
-        keep = running(state)
-        if not bool(keep.any()):
-            return state
-        state = select_pairs(keep, step(state, *args), state)
+    with annotate("lockstep.loop"):
+        if device_loop.resolve(loop, state.done.device) == "device":
+            return device_loop.while_loop(
+                step, running, state, args,
+                key=None if key is None else ("lockstep", key, max_it),
+                trace=trace, show=show)
+        while True:
+            keep = running(state)
+            if not bool(keep.any()):
+                return state
+            state = select_pairs(keep, step(state, *args), state)
 
 
 def pair(batch: NamedTuple, i: int):

@@ -19,11 +19,14 @@ Two backends, as the JAX package has:
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 import torch.distributed.checkpoint as dcp
 
-from ofot_tpu_torch.solvers.foto import FotoState
+if TYPE_CHECKING:       # the solvers import utils (their spans): no cycle
+    from ofot_tpu_torch.solvers.foto import FotoState
 
 _FLOAT_FIELDS = ("mu", "q", "phi", "crit", "prev_crit")
 
@@ -49,6 +52,7 @@ def state_from_arrays(arrays, device, dtype=None) -> FotoState:
               for k in _FLOAT_FIELDS}
     if dtype is not None:
         fields = {k: t.to(dtype) for k, t in fields.items()}
+    from ofot_tpu_torch.solvers.foto import FotoState
     return FotoState(
         **fields,
         iteration=int(arrays["iteration"]),
@@ -117,6 +121,7 @@ def load_state_dcp(path: str, device="cuda", mesh=None) -> FotoState:
     dcp.load(sd, checkpoint_id=str(path), no_dist=mesh is None)
     fields = {k: v.to_local() if isinstance(v, DTensor) else v
               for k, v in sd.items()}
+    from ofot_tpu_torch.solvers.foto import FotoState
     return FotoState(**{k: fields[k] for k in _FLOAT_FIELDS},
                      iteration=int(fields["iteration"]),
                      cg_iterations=int(fields["cg_iterations"]),
