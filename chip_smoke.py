@@ -37,8 +37,13 @@ Phases, each printed with its elapsed seconds:
    cold on a (16, 120, 160) tile with its four lines, beside conv3d on
    the tile padded with them and the card's launch floor: the device time
    of one in-place add to a one-element tensor
-   (``launch_floor_device_ms``).  Cold times rotate over enough sets to
-   pass the L2 and run back to back behind a spin kernel
+   (``launch_floor_device_ms``); the space-time stencil kernels
+   (``grad_st`` and stepA's right-hand side) bitwise their plain versions
+   at the sweep's shapes, Nt = 2, Ny = 2 and Nx % 4 != 0, single and as a
+   lockstep batch whose pairs are each bitwise their single launches,
+   and timed warm and cold at 320x240, 640x480 and B = 8 beside their
+   bytes bound and the plain stencils.  Cold times rotate over enough
+   sets to pass the L2 and run back to back behind a spin kernel
    (``queued_times``), every kernel record counted;
 8. paths: the CLI at 320x240 on the same pair, each path with every launch
    count set to 0 just before it and read just after: FOTO with
@@ -249,6 +254,7 @@ from ofot_tpu_torch.ops.kernels import _build
 from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.ops.kernels import dct_solve as ds
 from ofot_tpu_torch.ops.kernels import projection as pk
+from ofot_tpu_torch.ops.kernels import stencil_st as ss
 from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.solvers import (dct, device_loop, foto, gn, hs, pyramid,
                                     sinkhorn, wfr)
@@ -1006,6 +1012,102 @@ def check_cg_operator_tile(device, mem_bw, f32_rate):
                 library_max_abs_err=conv_err, **cold)
 
 
+# The stencil kernels of the ALG2 loop (phase 7): bitwise their plain
+# versions at the sweep's two shapes, Nt = 2, Ny = 2 and Nx % 4 != 0 (one
+# point a thread), single and as a lockstep batch of LOCKSTEP_B with
+# per-pair r; timed warm and cold at STENCIL_TIMED: (shape, batch), None a
+# single pair, 8 the lockstep cell's batch
+STENCIL_SHAPES = (SHAPE, (16, 480, 640), (2, 24, 32), (4, 2, 40),
+                  (5, 17, 23))
+STENCIL_TIMED = ((SHAPE, None), ((16, 480, 640), None), (SHAPE, 8))
+
+
+def stencil_inputs(shape, device, seed, batch=None):
+    """phi, mu, q, rho0, rhoT of ``shape`` (with a leading pair axis of
+    ``batch``) and r: 0.7, or per-pair penalties for a batch."""
+    lead = () if batch is None else (batch,)
+    phi = _random(lead + shape, device, seed)
+    mu, q = (_random(lead + (3,) + shape, device, seed + i)
+             for i in (1, 2))
+    a, b = (_random(lead + shape[1:], device, seed + i) for i in (3, 4))
+    r = 0.7 if batch is None else 0.5 + _random((batch,), device, seed + 5,
+                                                0.0, 1.0)
+    return phi, mu, q, a, b, r
+
+
+def stencil_bytes(shape, batch):
+    """Bytes each stencil kernel moves, every input read once and every
+    output written once: grad_st phi in, 3 components out; stepA_rhs mu
+    and q in (3 components each), the two frames in, F out."""
+    n, b = int(np.prod(shape)), batch or 1
+    frames = 2 * shape[1] * shape[2]
+    return 4 * b * 4 * n, 4 * b * (7 * n + frames)
+
+
+def check_stencil_st(device, mem_bw, f32_rate):
+    """Phase 7, the stencil kernels: bitwise their plain versions, repeat
+    launches bitwise, each pair of a batch bitwise its single launch; warm
+    and cold times beside the bytes bound and the plain stencils."""
+    for shape in STENCIL_SHAPES:
+        for batch in (None, LOCKSTEP_B):
+            phi, mu, q, a, b, r = stencil_inputs(shape, device, SEED + 30,
+                                                 batch)
+            if batch is None:
+                got, F = ss.grad_st(phi), ss.stepA_rhs(mu, q, a, b, r)
+                same = (torch.equal(got, ss.grad_st(phi))
+                        and torch.equal(F, ss.stepA_rhs(mu, q, a, b, r)))
+            else:
+                got = ss.grad_st_batched(phi)
+                F = ss.stepA_rhs_batched(mu, q, a, b, r)
+                same = all(
+                    torch.equal(got[i], ss.grad_st(phi[i])) and torch.equal(
+                        F[i], ss.stepA_rhs(mu[i], q[i], a[i], b[i],
+                                           float(r[i])))
+                    for i in range(batch))
+            plain = (torch.equal(got, ss.grad_st_reference(phi, bool(batch)))
+                     and torch.equal(F, ss.stepA_rhs_reference(
+                         mu, q, a, b, r, bool(batch))))
+            _log(f"  stencil kernels {shape} batch {batch}: bitwise the "
+                 f"plain versions {plain}, repeats / pairs bitwise {same}")
+            if not (plain and same):
+                raise AssertionError(f"stencil kernels {shape} batch "
+                                     f"{batch}: not bitwise")
+    out = {}
+    for shape, batch in STENCIL_TIMED:
+        phi, mu, q, a, b, r = stencil_inputs(shape, device, SEED + 40, batch)
+        batched = batch is not None
+        g_bytes, f_bytes = stencil_bytes(shape, batch)
+        kernels_ = {
+            "grad_st": (lambda ins: ss.prepare_grad_st(ins[0], batched)[0],
+                        lambda: ss.grad_st_reference(phi, batched), g_bytes),
+            "stepA_rhs": (lambda ins: ss.prepare_stepA_rhs(
+                *ins[1:], batched)[0], lambda: ss.stepA_rhs_reference(
+                    mu, q, a, b, r, batched), f_bytes)}
+        label = f"{shape} batch {batch}"
+        for name, (make, plain, nbytes) in kernels_.items():
+            rec = time_kernel(make((phi, mu, q, a, b, r)), plain,
+                              one_kernel=True)
+            bound_ms, bound_by = bound(nbytes, 0, mem_bw, f32_rate)
+            _timing_line(f"{name} {label}", rec, bound_ms, bound_by, nbytes,
+                         0)
+            cold = cold_times(lambda i: make(stencil_inputs(
+                shape, device, SEED + 50 + 10 * i, batch)), nbytes)
+            _log(f"  {name} {label} cold: {cold['cold_ms']:.4f} ms by "
+                 f"events, {cold['cold_device_ms']:.4f} ms device over "
+                 f"{cold['cold_sets']} rotating sets; kernel at "
+                 f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound "
+                 "by cold device time")
+            out[(name, shape, batch)] = dict(rec, bound_ms=bound_ms,
+                                             bound_by=bound_by, **cold)
+        both, cold_both, plain_both = (
+            sum(out[(k, shape, batch)][key] for k in kernels_)
+            for key in ("bound_ms", "cold_device_ms", "plain_device_ms"))
+        _log(f"  stencil kernels {label} together: bound {both:.4f} ms, "
+             f"cold device {cold_both:.4f} ms ({100 * both / cold_both:.1f}% "
+             f"of bound); the plain stencils {plain_both:.4f} ms device")
+    return out
+
+
 def launch_floor_ms(device) -> float:
     """The device time of the smallest launch: one in-place add to a
     one-element tensor, by ``device_time_ms`` (the kernels' own method)."""
@@ -1117,6 +1219,15 @@ def check_launches(label, launches, expect, loops=None):
         raise AssertionError(f"{label}: {'; '.join(bad)}")
 
 
+def pallas_launches(foto_iterations, wfr_iterations=0):
+    """The kernels an ALG2 iteration of the ``pallas`` set launches once
+    each: #1 and the stencil kernel of ``grad_st`` in FOTO and WFR, the one
+    of stepA's right-hand side in FOTO (WFR forms its own)."""
+    both = foto_iterations + wfr_iterations
+    return {"fused_pointwise": both, "stencil_grad_st": both,
+            "stencil_stepA_rhs": foto_iterations}
+
+
 def check_cli_outputs(workdir: Path, label: str, d: Path):
     """IE below the identity warp's and a finite 320x240 .flo; returns
     (IE, solve seconds, identity IE)."""
@@ -1140,7 +1251,7 @@ def check_cli_outputs(workdir: Path, label: str, d: Path):
 def run_main_path(workdir: Path):
     """Phase 4: the CLI's FOTO solve with the fused kernel."""
     return run_cli_path(workdir, "foto-auto", FOTO_ARGS,
-                        lambda it, cg: {"fused_pointwise": it})
+                        lambda it, cg: pallas_launches(it))
 
 
 def _wfr_history(a, b, n, ops):
@@ -1264,7 +1375,7 @@ def run_paths(workdir: Path):
             lambda it, cg: {"cg_operator_blocked": cg}),
         "wfr-auto": run_cli_path(
             workdir, "wfr-auto", WFR_ARGS,
-            lambda it, cg: {"fused_pointwise": it}),
+            lambda it, cg: pallas_launches(0, it)),
         "wfr-dct-fused": run_cli_path(
             workdir, "wfr-dct-fused",
             [*WFR_ARGS, "--stepA-solver=dct-fused"],
@@ -1572,7 +1683,7 @@ def run_outputs_path(workdir: Path):
     run = run_cli_path(workdir, "foto-outputs", [
         *cut, f"--max-it={OUTPUTS_MAX_IT}", f"--log-jsonl={d}.jsonl",
         f"--save-density-frames={d}", f"--save-flow-viz={d}.png",
-        f"--profile={d}-trace"], lambda it, cg: {"fused_pointwise": it})
+        f"--profile={d}-trace"], lambda it, cg: pallas_launches(it))
     if run["iterations"] != OUTPUTS_MAX_IT:
         raise AssertionError(f"foto-outputs: {run['iterations']} iterations")
     _, h, w = SHAPE
@@ -1886,12 +1997,14 @@ def _bench_lines(path: Path):
 
 def check_sweep(label, seqs, results: Path, manifest, launches, batch,
                 lockstep=False):
-    """Every artifact, manifest key and bound of one sweep; the fused
-    kernel launched once per FOTO and WFR ALG2 iteration, no other (a
-    lockstep batch: once per iteration of each group's slowest pair)."""
+    """Every artifact, manifest key and bound of one sweep; the ``pallas``
+    set's kernels launched once per FOTO and WFR ALG2 iteration
+    (``pallas_launches``), no other (a lockstep batch: once per iteration
+    of each group's slowest pair); returns the ALG2 iterations by
+    algorithm."""
     if sorted(manifest) != sorted(seqs):
         raise AssertionError(f"{label}: manifest rows {sorted(manifest)}")
-    alg2_iterations, ees, escalated = 0, {}, []
+    alg2_iterations, ees, escalated = {"foto": 0, "WFR": 0}, {}, []
     group_iterations = {}
     for key, (shift, frames, (h, w)) in seqs.items():
         out = results / key
@@ -1949,7 +2062,7 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch,
                     raise AssertionError(f"{label} {key} {algo}: EE {ee} "
                                          f"against the zero flow's {ee_zero}")
             if algo in ("foto", "WFR"):
-                alg2_iterations += int(row["iterations"])
+                alg2_iterations[algo] += int(row["iterations"])
                 group = (algo, key.split("/")[0], (h, w))
                 group_iterations[group] = max(group_iterations.get(group, 0),
                                               int(row["iterations"]))
@@ -1963,9 +2076,12 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch,
     _log(f"  {label}: EE / zero flow's EE on the ground-truth sequences "
          f"{ees}; re-solved with the exact softmin: {escalated}")
     if lockstep:
-        alg2_iterations = sum(group_iterations.values())
-    check_launches(label, launches, {"fused_pointwise": alg2_iterations},
-                   loops=device_loop.stats)
+        alg2_iterations = {algo: sum(n for g, n in group_iterations.items()
+                                     if g[0] == algo)
+                           for algo in alg2_iterations}
+    check_launches(label, launches, pallas_launches(
+        alg2_iterations["foto"], alg2_iterations["WFR"]),
+        loops=device_loop.stats)
     return alg2_iterations
 
 
@@ -2367,7 +2483,8 @@ def lockstep_solves():
         its, map_its = d[count].tolist(), dm[count].tolist()
         if algo in ("foto", "WFR"):
             check_launches(f"lockstep {algo}", launches,
-                           {"fused_pointwise": max(its)},
+                           pallas_launches(max(its)) if algo == "foto"
+                           else pallas_launches(0, max(its)),
                            loops=device_loop.stats)
             cap = kw[f"{'foto' if algo == 'foto' else 'wfr'}_params"][
                 "max_it"]
@@ -2474,8 +2591,8 @@ def lockstep_other_sets():
     kw = _batch_kw("foto", auto_r=True)
     u, v, m, d, s, launches = _timed_batch("foto", f1s, f2s, kw, "vmap")
     its = check("lockstep auto_r", u, v, m, d, f1s, f2s, None)
-    check_launches("lockstep auto_r", launches,
-                   {"fused_pointwise": max(its)}, loops=device_loop.stats)
+    check_launches("lockstep auto_r", launches, pallas_launches(max(its)),
+                   loops=device_loop.stats)
     _log(f"  lockstep foto auto_r B={LOCKSTEP_B}: iterations {its}, "
          f"launches {launches}, {s:.4f} s")
     out["auto_r"] = dict(iterations=its, launches=launches, seconds=s)
@@ -2570,17 +2687,15 @@ BENCH_RUNS = (("auto", []),
                            "--repeats", str(BENCH_SHORT_REPEATS)]))
 
 
-def bench_alg2_iterations(families: bool, repeats: int) -> int:
-    """ALG2 iterations the bench runs with its primary ops set at
-    ``repeats``: the timed call's first run and repeats, the 5x arm's
+def bench_alg2_iterations(families: bool, repeats: int):
+    """(FOTO, WFR) ALG2 iterations the bench runs with its primary ops set
+    at ``repeats``: the timed call's first run and repeats, the 5x arm's
     first run and halved repeats (at least 2), and the WFR family's chain
     (n and 5n iterations, a first call and 3 repeats each)."""
     n = BENCH_ITERS
     count = n * (1 + repeats) + 5 * n * (1 + max(2, repeats // 2))
-    if families:
-        w = max(2, n // 5)
-        count += 4 * w + 4 * 5 * w
-    return count
+    w = max(2, n // 5) if families else 0
+    return count, 4 * w + 4 * 5 * w
 
 
 def run_bench(label, extra):
@@ -2627,13 +2742,15 @@ def bench_phase():
         families = "--no-families" not in extra
         repeats = (BENCH_SHORT_REPEATS if "--repeats" in extra
                    else BENCH_REPEATS)
-        want = bench_alg2_iterations(families, repeats)
+        foto_its, wfr_its = bench_alg2_iterations(families, repeats)
+        want = foto_its + wfr_its
         if rec["alg2_iterations"] != want:
             raise AssertionError(f"bench {label}: {rec['alg2_iterations']} "
                                  f"ALG2 iterations, expected {want}")
         kernel = "dct_solve" if rec["ops"] == "dct-fused" else \
             "fused_pointwise"
-        expect = {kernel: want}
+        expect = ({kernel: want} if kernel == "dct_solve"
+                  else pallas_launches(foto_its, wfr_its))
         check_launches(f"bench {label}", launches, expect, loops=loops)
         _log(f"  bench {label}: loop {rec['loop']}, ops {rec['ops']}, "
              f"{kernel} launched {launches[kernel]} times for its {want} "
@@ -3005,8 +3122,9 @@ def _same_bits(a, b) -> bool:
 
 
 def device_loop_paths(rho):
-    """name -> (run(loop) -> (fields, iterations, CG steps), the kernel
-    each iteration (or CG step) launches once, the unit it counts)."""
+    """name -> (run(loop) -> (fields, iterations, CG steps), the kernels
+    each iteration (or CG step) launches (``launches_for``), the unit it
+    counts)."""
     a, b = (torch.as_tensor(x, dtype=torch.float32, device=CARD)
             for x in rho)
     Nt = SHAPE[0]
@@ -3055,12 +3173,13 @@ def device_loop_paths(rho):
             f1s, f2s, Nt, ops=foto.stepA_ops("pallas"), loop=loop, **alg2))
 
     return {
-        "foto pallas": (foto_path("pallas"), "fused_pointwise", "its"),
+        "foto pallas": (foto_path("pallas"), pallas_launches, "its"),
         "foto dct": (foto_path("dct"), None, "its"),
-        "foto dct-fused": (foto_path("dct-fused"), "dct_solve", "its"),
+        "foto dct-fused": (foto_path("dct-fused"), {"dct_solve": 1}, "its"),
         "foto dct-refined": (foto_path("dct-refined"), None, "its"),
-        "wfr pallas": (wfr_path("pallas"), "fused_pointwise", "its"),
-        "wfr dct-fused": (wfr_path("dct-fused"), "dct_solve", "its"),
+        "wfr pallas": (wfr_path("pallas"), lambda n: pallas_launches(0, n),
+                       "its"),
+        "wfr dct-fused": (wfr_path("dct-fused"), {"dct_solve": 1}, "its"),
         "gn": (cg_path(lambda p, q, loop: gn.solve_fields(
             p, q, 0.1, 0.2, loop=loop)), None, "CG steps"),
         "gn pyramid": (pyramid_path, None, "CG steps"),
@@ -3068,12 +3187,23 @@ def device_loop_paths(rho):
             p, q, 0.1, loop=loop)), None, "CG steps"),
         "foto cg-pallas": (foto_path(
             "cg-pallas", max_it=DEVICE_LOOP_CG_PALLAS_MAX_IT),
-            "cg_operator_blocked", "CG steps"),
+            {"cg_operator_blocked": 1}, "CG steps"),
         "sinkhorn auto": (sinkhorn_path("matmul"), None, "its"),
         "sinkhorn exact": (sinkhorn_path("exact"), None, "its"),
-        f"lockstep foto B={LOCKSTEP_B}": (lockstep_path, "fused_pointwise",
+        f"lockstep foto B={LOCKSTEP_B}": (lockstep_path, pallas_launches,
                                           "its"),
     }
+
+
+def launches_for(kernels_of, n):
+    """The launches a device-loop path's kernels make in ``n`` iterations
+    (or CG steps): ``kernels_of`` is None (no kernel), a dict of launches
+    an iteration, or a function of ``n``."""
+    if kernels_of is None:
+        return {}
+    if callable(kernels_of):
+        return kernels_of(n)
+    return {k: per * n for k, per in kernels_of.items()}
 
 
 def _loop_run(fn, loop):
@@ -3100,14 +3230,14 @@ def device_loop_phase(rho):
     and ms per iteration, capture ms, K and replays, a profiler window's
     idle share and the peak memory; then the K sweep on FOTO pallas."""
     out = {}
-    for name, (fn, kernel, unit) in device_loop_paths(rho).items():
+    for name, (fn, kernels_of, unit) in device_loop_paths(rho).items():
         host = _loop_run(fn, "host")
         device_loop.clear_cache()        # the cold run captures afresh
         cold = _loop_run(fn, "device")
         warm = _loop_run(fn, "device")
         (hf, h_its, h_cg), host_s, host_l, _, host_peak = host
         n = max(int(h_cg if unit == "CG steps" else h_its), 1)
-        expect = {kernel: n} if kernel else {}
+        expect = launches_for(kernels_of, n)
         check_launches(f"host loop {name}", host_l, expect)
         for label, run in (("cold", cold), ("warm", warm)):
             (df, d_its, d_cg), _, launches, loops, _ = run
@@ -3148,7 +3278,7 @@ def device_loop_phase(rho):
              "MiB")
         out[name] = rec
 
-    fn, kernel, _ = device_loop_paths(rho)["foto pallas"]
+    fn, kernels_of, _ = device_loop_paths(rho)["foto pallas"]
     sweep, block = {}, device_loop.BLOCK
     try:
         for K in DEVICE_LOOP_BLOCKS:
@@ -3156,7 +3286,8 @@ def device_loop_phase(rho):
             cold = _loop_run(fn, "device")
             warm = _loop_run(fn, "device")
             (_, its, _), seconds, launches, loops, _ = warm
-            check_launches(f"K={K}", launches, {kernel: its}, loops=loops)
+            check_launches(f"K={K}", launches, launches_for(kernels_of, its),
+                           loops=loops)
             sweep[K] = dict(ms=1e3 * seconds / its,
                             capture_ms=cold[3].capture_ms,
                             replays=loops.replays, slots=loops.slots)
@@ -3366,7 +3497,7 @@ def examples_phase(workdir: Path):
         if name == "sharded_solve":        # its one rank ran the solve
             launches, peak = res["launches"], res["peak_mib"] or 0.0
             loops = None
-        expect = ({"fused_pointwise": res["wfr_iterations"]}
+        expect = (pallas_launches(0, res["wfr_iterations"])
                   if name == "unbalanced_flow" else {})
         check_launches(f"example {name}", launches, expect, loops=loops)
         if name == "w2_gradient_flow":
@@ -3553,8 +3684,7 @@ def graft_entry_phase():
         # map mode launches #1 once an iteration of each pair, a lockstep
         # batch its batched form once an iteration of its slowest pair (a
         # rehearsal with CARD = "cpu" runs the plain versions: none)
-        expect = ({"fused_pointwise": sum(its) if leg == "map"
-                   else max(its)}
+        expect = (pallas_launches(sum(its) if leg == "map" else max(its))
                   if leg in GRAFT_KERNEL_LEGS and CARD == "cuda" else {})
         check_launches(f"dryrun_multichip(1) {leg}", got, expect,
                        loops=loops)
@@ -3616,6 +3746,7 @@ def main() -> int:
             proj_err, proj = check_projection(device, mem_bw, f32_rate)
             cg_err, cg_recs = check_cg_operator(device, mem_bw, f32_rate)
             tile_rec = check_cg_operator_tile(device, mem_bw, f32_rate)
+            stencil_recs = check_stencil_st(device, mem_bw, f32_rate)
 
         with Phase("8 paths"):
             paths = run_paths(workdir)
@@ -3713,6 +3844,15 @@ def main() -> int:
     # 4 ranks): pallas's tile-local fused pass, dct-fused's solve of the
     # gathered F and cg-pallas's tile operator
     bench_launches = {k: r["launches"] for k, r in bench_recs.items()}
+    def stencil_entry(name, kernel, shape=SHAPE, batch=None):
+        rec = stencil_recs[(name, shape, batch)]
+        return {"name": kernel, "route": "cuda",
+                "source": "ofot_tpu_torch/csrc/stencil_st.cu",
+                "replaces": None, "shape": list(shape), "batch": batch,
+                **{k: rec[k] for k in (
+                    "ms", "device_ms", "plain_ms", "plain_device_ms",
+                    "bound_ms", "bound_by", "cold_ms", "cold_device_ms")}}
+
     record = {"kernels": [
         dict(entry("fused_pointwise", "fused_pointwise.cu", 224,
                    solve["launches"]["fused_pointwise"], worst, t),
@@ -3773,6 +3913,15 @@ def main() -> int:
                              lock_sets["cg-pallas"]["launches"][
                                  "cg_operator_blocked"],
                              lock_cg["max_abs_err"], lock_cg)),
+        # the stencil kernels replace no TPU kernel; launches from the main
+        # path's FOTO solve, bitwise their plain versions (max error 0)
+        *[dict(stencil_entry(name, kernel, shape, batch),
+               launches=solve["launches"][kernel] if batch is None
+               else lock_solves["foto"]["launches"][kernel],
+               max_abs_err=0.0)
+          for name, kernel in (("grad_st", "stencil_grad_st"),
+                               ("stepA_rhs", "stencil_stepA_rhs"))
+          for shape, batch in STENCIL_TIMED],
     ]}
     _log(f"chip_smoke wall {time.time() - t_start:.2f} s")
     _log(smi)

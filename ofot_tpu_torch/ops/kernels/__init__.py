@@ -18,6 +18,8 @@ KERNELS = {
     "cg_operator": ("cg_operator", "launches"),
     "cg_operator_blocked": ("cg_operator", "blocked_launches"),
     "cg_operator_tile": ("cg_operator", "tile_launches"),
+    "stencil_grad_st": ("stencil_st", "grad_st_launches"),
+    "stencil_stepA_rhs": ("stencil_st", "stepA_rhs_launches"),
 }
 
 

@@ -146,6 +146,13 @@ def load_library() -> ctypes.CDLL:
             c_int, c_int, c_int, c_int,       # batch Nt Ny Nx
             c_float, c_float, vp, vp,         # r r*eps r_pairs reps_pairs
             vp],                              # stream
+        "ofot_stencil_grad_st": [
+            vp, vp, c_int, c_int, c_int, c_int,   # phi out batch Nt Ny Nx
+            vp],                              # stream
+        "ofot_stencil_stepA_rhs": [
+            vp, vp, vp, vp, vp,               # mu q rho0 rhoT F
+            c_int, c_int, c_int, c_int,       # batch Nt Ny Nx
+            c_float, vp, vp],                 # r r_pairs stream
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -96,6 +96,18 @@ def div_st(mu, dt=1.0, dx=1.0, dy=1.0, bc="N", dim=0):
             + stencils.grad_central_weird(m2, dy, bc, axis=_AX_Y))
 
 
+def add_time_boundary(F, rho, a, rho0, rhoT, r, dt=1.0):
+    """Add the non-homogeneous Neumann time-boundary terms that inject
+    rho0 / rhoT into F's first and last time planes, in place (F is a
+    fresh tensor); the t axis is -3, also in a batch (reference
+    benamou_brenier.py:72-82).  ``rho``, ``a``: the density components of
+    mu and q."""
+    g0 = rho0 - rho.select(-3, 0) + r * a.select(-3, 0)
+    gN = rhoT - rho.select(-3, -1) + r * a.select(-3, -1)
+    F.select(-3, 0).add_(-(1.0 / dt) * g0)
+    F.select(-3, -1).add_((1.0 / dt) * gN)
+
+
 def laplacian_st(phi, dt=1.0, dx=1.0, dy=1.0, bc="N"):
     """7-point space-time Laplacian ``Lt + Lx + Ly`` -> (Nt, Ny, Nx)
     (reference operators.py:144-157)."""

@@ -198,6 +198,10 @@ class ShardedOps(_DefaultOps):
                 + grad_central_weird_halo(mu[1], dx, bc, -1, self.mesh, "x")
                 + grad_central_weird_halo(mu[2], dy, bc, -2, self.mesh, "y"))
 
+    # the plain right-hand side on the halo div_st: in a tiled kernel set's
+    # class this comes before the set's own whole-field kernel
+    stepA_rhs = _DefaultOps.stepA_rhs
+
     def laplacian_st(self, phi, dt=1.0, dx=1.0, dy=1.0, bc="N"):
         return (stencils.lap1d(phi, dt, bc, axis=-3)
                 + lap1d_halo(phi, dx, bc, -1, self.mesh, "x")

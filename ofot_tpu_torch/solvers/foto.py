@@ -34,8 +34,10 @@ Ops sets (``stepA_ops``), named as the JAX CLI names them:
     plus three steps of float32 iterative refinement, unfused rest;
   * ``pallas``: spectral stepA plus the fused stepB + stepC + criterion
     pass, which on CUDA tensors is the hand-written kernel
-    (``ops/kernels/fused_pointwise.py``).  The name is the JAX flag value,
-    kept so that run scripts work unchanged;
+    (``ops/kernels/fused_pointwise.py``), with ``grad_st`` and stepA's
+    right-hand side the stencil kernels of ``ops/kernels/stencil_st.py``
+    (bitwise the plain stencils).  The name is the JAX flag value, kept
+    so that run scripts work unchanged;
   * ``dct-fused``: spectral stepA whose per-slice body is the hand-written
     kernel of ``ops/kernels/dct_solve.py``, unfused rest;
   * ``cg-pallas``: CG stepA whose operator is the hand-written stencil
@@ -67,6 +69,7 @@ from ofot_tpu_torch.ops.kernels import dct_solve as dct_solve_kernel
 from ofot_tpu_torch.ops.kernels.dct_solve import dct_solve
 from ofot_tpu_torch.ops.kernels.fused_pointwise import (
     fused_pointwise, fused_pointwise_batched)
+from ofot_tpu_torch.ops.kernels import stencil_st
 from ofot_tpu_torch.ops.projection import (project_paraboloid,
                                            project_paraboloid_nd)
 from ofot_tpu_torch.solvers import cg as cg_mod
@@ -105,6 +108,15 @@ class _DefaultOps:
         neg_r, reps = -r, r * reg_epsilon
         return lambda phi: (neg_r * self.laplacian_st(phi, bc="N")
                             + reps * phi)
+
+    def stepA_rhs(self, mu, q, rho0, rhoT, r):
+        """stepA's right-hand side: div_st(mu - r q) plus the time-boundary
+        terms injecting rho0 / rhoT (reference benamou_brenier.py:26-82)."""
+        dt = 1.0
+        F = self.div_st(mu - r * q, bc="N")
+        rho, a = mu.select(self.cax, 0), q.select(self.cax, 0)
+        operators.add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
+        return F
 
     def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
                     loop="auto"):
@@ -182,13 +194,20 @@ class DCTFusedOps(DCTOps):
 
 class PallasOps(DCTOps):
     """Spectral stepA plus the fused stepB + stepC + criterion pass (one
-    kernel launch per ALG2 iteration on CUDA tensors).  ``project`` and
-    ``project_nd`` are the standalone projection kernel, which reads the
-    component count from the array; no ALG2 path calls them, since the
-    fused pass does the projection."""
+    kernel launch per ALG2 iteration on CUDA tensors), with ``grad_st``
+    and stepA's right-hand side each one launch of the stencil kernels of
+    ``ops/kernels/stencil_st.py`` (bitwise the plain stencils).
+    ``project`` and ``project_nd`` are the standalone projection kernel,
+    which reads the component count from the array; no ALG2 path calls
+    them, since the fused pass does the projection."""
     fused_pointwise = staticmethod(fused_pointwise)
+    grad_st = staticmethod(stencil_st.grad_st)
     project = staticmethod(projection_kernel.project_paraboloid)
     project_nd = project
+
+    @staticmethod
+    def stepA_rhs(mu, q, rho0, rhoT, r):
+        return stencil_st.stepA_rhs(mu, q, rho0, rhoT, kernel_r(r))
 
 
 class PallasCGOps(_DefaultOps):
@@ -246,11 +265,20 @@ def _fused_batched(grad_phi, mu, r, alpha=None, q_prev=None):
     return fused_pointwise_batched(grad_phi, mu, kernel_r(r), alpha, q_prev)
 
 
+def _stepA_rhs_batched(mu, q, rho0, rhoT, r):
+    return stencil_st.stepA_rhs_batched(mu, q, rho0, rhoT, kernel_r(r))
+
+
 @functools.cache
 def _lockstep_class(cls):
+    # the batched kernels go into the class's own attributes: _Lockstep's
+    # plain stencils come first in its MRO
     attrs = {}
     if hasattr(cls, "fused_pointwise"):
         attrs["fused_pointwise"] = staticmethod(_fused_batched)
+    if issubclass(cls, PallasOps):
+        attrs["grad_st"] = staticmethod(stencil_st.grad_st_batched)
+        attrs["stepA_rhs"] = staticmethod(_stepA_rhs_batched)
     return type(f"Lockstep{cls.__name__}", (_Lockstep, cls), attrs)
 
 
@@ -337,22 +365,9 @@ def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, cg_rtol, cg_maxiter,
            ops=DEFAULT_OPS, loop="auto"):
     """Solve A phi = div_st(mu - r q) + time-BC terms
     (reference benamou_brenier.py:26-91)."""
-    dt = 1.0
-    F = ops.div_st(mu - r * q, bc="N")
-    rho, a = mu.select(ops.cax, 0), q.select(ops.cax, 0)
-    _add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
+    F = ops.stepA_rhs(mu, q, rho0, rhoT, r)
     return ops.stepA_solve(F, r, reg_epsilon, cg_rtol, cg_maxiter,
                            loop=loop)
-
-
-def _add_time_boundary(F, rho, a, rho0, rhoT, r, dt):
-    """Add the non-homogeneous Neumann time-boundary terms that inject
-    rho0 / rhoT into F's first and last time planes, in place (F is a
-    fresh tensor); the t axis is -3, also in a batch."""
-    g0 = rho0 - rho.select(-3, 0) + r * a.select(-3, 0)
-    gN = rhoT - rho.select(-3, -1) + r * a.select(-3, -1)
-    F.select(-3, 0).add_(-(1.0 / dt) * g0)
-    F.select(-3, -1).add_((1.0 / dt) * gN)
 
 
 def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.solvers import flow_extract, foto
 from ofot_tpu_torch.solvers.flow_extract import flow_from_potential  # noqa: F401
 
@@ -101,7 +102,7 @@ def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, delta, cg_rtol, cg_maxiter,
     F = (ops.div_st(x.narrow(ops.cax, 0, 3), bc="N")
          - x.select(ops.cax, 3) / delta)
     rho, a = mu.select(ops.cax, 0), q.select(ops.cax, 0)
-    foto._add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
+    operators.add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
 
     eps_eff = reg_epsilon + 1.0 / (delta * delta)
     return ops.stepA_solve(F, r, eps_eff, cg_rtol, cg_maxiter, loop=loop)

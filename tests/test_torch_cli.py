@@ -122,7 +122,8 @@ def test_cli_writes_all_foto_artifacts(frames, tmp_path, capsys):
     counts = dict(kv.split(":") for kv in line[0].split("=")[1].split(","))
     assert set(counts) == {"fused_pointwise", "dct_solve",
                            "project_paraboloid", "cg_operator",
-                           "cg_operator_blocked", "cg_operator_tile"}
+                           "cg_operator_blocked", "cg_operator_tile",
+                           "stencil_grad_st", "stencil_stepA_rhs"}
     assert set(counts.values()) == {"0"} and "iterations=5" in out
 
 

@@ -44,6 +44,8 @@ replayed launches = the slots of the replays, and iterations <= slots <=
 iterations + (K - 1) a loop.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -63,17 +65,29 @@ def _reset_counts():
     device_loop.reset_stats()
 
 
-def _assert_launch_relation(launches, kernel, iterations):
-    """The device loop's launch relation for ``kernel``, launched once an
-    iteration, and no launch of any other kernel."""
+def _assert_launch_relation(launches, expect):
+    """The device loop's launch relation for each kernel of ``expect``
+    (kernel -> the iterations that launch it once each), and no launch of
+    any other kernel."""
     from ofot_tpu_torch.solvers import device_loop
     s = device_loop.stats
-    replayed = s.graph_launches.get(kernel, 0)
-    assert launches[kernel] == s.eager_launches.get(kernel, 0) + replayed
-    assert replayed == s.kernel_slots.get(kernel, 0)
-    assert iterations <= replayed <= iterations + s.kernel_spare.get(kernel,
-                                                                     0)
-    assert sum(launches.values()) == launches[kernel]
+    for kernel, iterations in expect.items():
+        replayed = s.graph_launches.get(kernel, 0)
+        assert launches[kernel] == s.eager_launches.get(kernel, 0) \
+            + replayed, kernel
+        assert replayed == s.kernel_slots.get(kernel, 0), kernel
+        assert iterations <= replayed <= iterations + s.kernel_spare.get(
+            kernel, 0), kernel
+    assert sum(launches.values()) == sum(launches[k] for k in expect)
+
+
+def _pallas_launches(foto_iterations, wfr_iterations=0):
+    """The kernels an ALG2 iteration of the ``pallas`` set launches once
+    each: #1 and the gradient in FOTO and WFR, stepA's right-hand side in
+    FOTO (WFR forms its own)."""
+    both = foto_iterations + wfr_iterations
+    return {"fused_pointwise": both, "stencil_grad_st": both,
+            "stencil_stepA_rhs": foto_iterations}
 
 
 @pytest.fixture
@@ -319,6 +333,92 @@ def test_new_kernels_reject_bad_operands_on_card(cuda_device):
         pk.project_paraboloid(torch.zeros(5, 4, device=cuda_device))
 
 
+# The stencil kernels at the sweep's shapes, Nt = 2, Ny = 2, Nx % 4 != 0
+# (one point a thread) and an unaligned field (one point a thread too)
+STENCIL_SHAPES = [(16, 240, 320), (16, 480, 640), (2, 24, 32), (5, 17, 23),
+                  (4, 2, 40), (3, 6, 2)]
+
+
+def _stencil_inputs(shape, device, batch=None, offset=0):
+    """phi, mu, q, rho0, rhoT of ``shape`` (a leading pair axis with
+    ``batch``), each starting ``offset`` floats into its storage."""
+    lead = () if batch is None else (batch,)
+
+    def field(*s):
+        n = int(np.prod(s))
+        flat = RNG.uniform(-1, 2, n + offset).astype(np.float32)
+        return torch.from_numpy(flat).to(device)[offset:].view(*s)
+
+    return (field(*lead, *shape), field(*lead, 3, *shape),
+            field(*lead, 3, *shape), field(*lead, *shape[1:]),
+            field(*lead, *shape[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STENCIL_SHAPES + ["unaligned"])
+@pytest.mark.parametrize("r", [1.0, 0.7])
+def test_stencil_kernels_match_plain_versions_on_card(cuda_device, shape, r):
+    """grad_st and stepA's right-hand side: bitwise their plain versions,
+    and repeat launches bitwise."""
+    from ofot_tpu_torch.ops.kernels import stencil_st as ss
+    offset = 1 if shape == "unaligned" else 0
+    shape = (6, 10, 16) if shape == "unaligned" else shape
+    phi, mu, q, a, b = _stencil_inputs(shape, cuda_device, offset=offset)
+    got = ss.grad_st(phi)
+    assert torch.equal(got, ss.grad_st_reference(phi))
+    assert torch.equal(got, ss.grad_st(phi))
+    F = ss.stepA_rhs(mu, q, a, b, r)
+    assert torch.equal(F, ss.stepA_rhs_reference(mu, q, a, b, r))
+    assert torch.equal(F, ss.stepA_rhs(mu, q, a, b, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 240, 320), (5, 17, 23)])
+@pytest.mark.parametrize("per_pair", [False, True])
+def test_batched_stencil_kernels_on_card(cuda_device, shape, per_pair):
+    """A lockstep batch of 8 in one launch each: bitwise the plain batched
+    versions, and every pair bitwise its single-pair launch."""
+    from ofot_tpu_torch.ops.kernels import stencil_st as ss
+    phi, mu, q, a, b = _stencil_inputs(shape, cuda_device, batch=8)
+    r = (torch.from_numpy(RNG.uniform(0.3, 2.0, 8).astype(np.float32))
+         .to(cuda_device) if per_pair else 0.7)
+    got = ss.grad_st_batched(phi)
+    F = ss.stepA_rhs_batched(mu, q, a, b, r)
+    assert torch.equal(got, ss.grad_st_reference(phi, batched=True))
+    assert torch.equal(F, ss.stepA_rhs_reference(mu, q, a, b, r,
+                                                 batched=True))
+    for i in range(8):
+        ri = float(r[i]) if per_pair else r
+        assert torch.equal(got[i], ss.grad_st(phi[i]))
+        assert torch.equal(F[i], ss.stepA_rhs(mu[i], q[i], a[i], b[i], ri))
+
+
+@pytest.mark.cuda
+def test_stencil_kernels_reject_bad_operands_on_card(cuda_device):
+    from ofot_tpu_torch.ops.kernels import stencil_st as ss
+    phi, mu, q, a, b = _stencil_inputs((4, 6, 8), cuda_device)
+    with pytest.raises(TypeError):
+        ss.grad_st(phi.double())
+    with pytest.raises(TypeError):
+        ss.stepA_rhs(mu, q.double(), a, b, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.grad_st(phi.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.stepA_rhs(mu, q, a.t().contiguous().t(), b, 1.0)
+    for bad in ((1, 6, 8), (4, 1, 8), (4, 6, 1)):
+        with pytest.raises(ValueError, match=">= 2"):
+            ss.grad_st(torch.zeros(bad, device=cuda_device))
+        with pytest.raises(ValueError, match=">= 2"):
+            z = torch.zeros((3,) + bad, device=cuda_device)
+            ss.stepA_rhs(z, z, z[0, 0], z[0, 0], 1.0)
+    with pytest.raises(ValueError, match="rho0 has shape"):
+        ss.stepA_rhs(mu, q, a[:, :4].contiguous(), b, 1.0)
+    with pytest.raises(ValueError, match="per-pair r"):
+        ss.stepA_rhs(mu, q, a, b, torch.ones(2, device=cuda_device))
+    with pytest.raises(ValueError, match="bc='N' only"):
+        ss.grad_st(phi, bc="D")
+
+
 def _texture_pair(h, w, shift=(2, 3), sigma=3.0, seed=5):
     """A smooth random texture in [0.1, 0.9] and the same texture moved by
     ``shift`` = (dy, dx) pixels."""
@@ -485,8 +585,8 @@ def test_map_mode_bitwise_equals_single_pair_on_card(cuda_device):
         device=cuda_device)
     launches = kernels.launch_counts()
     assert u.device.type == "cuda"
-    _assert_launch_relation(launches, "fused_pointwise",
-                            int(diag["iterations"].sum()))
+    _assert_launch_relation(launches,
+                            _pallas_launches(int(diag["iterations"].sum())))
     for i in range(3):
         one = foto.solve(torch.as_tensor(f1s[i], device=cuda_device),
                          torch.as_tensor(f2s[i], device=cuda_device), 4,
@@ -521,7 +621,7 @@ def test_pipeline_run_on_card(cuda_device, tmp_path):
         "GN,foto,WFR,sinkhorn", "--extra-args=--Nt=4 --max-it=6"]) == 0
     launches = kernels.launch_counts()
     manifest = json.loads((tmp_path / "res" / "manifest.json").read_text())
-    iterations = 0
+    foto_its = wfr_its = 0
     for i in range(2):
         out = tmp_path / "res" / "middlebury-1" / f"s{i}"
         names = ["diff.png", "wfr.growth.png"]
@@ -533,8 +633,9 @@ def test_pipeline_run_on_card(cuda_device, tmp_path):
         assert all(r["status"] == "ok" for r in row.values())
         assert row["foto"]["stepA_solver"] == row["WFR"]["stepA_solver"] \
             == "pallas"
-        iterations += row["foto"]["iterations"] + row["WFR"]["iterations"]
-    _assert_launch_relation(launches, "fused_pointwise", iterations)
+        foto_its += row["foto"]["iterations"]
+        wfr_its += row["WFR"]["iterations"]
+    _assert_launch_relation(launches, _pallas_launches(foto_its, wfr_its))
 
 
 @pytest.mark.cuda
@@ -654,8 +755,8 @@ def test_lockstep_solve_batch_full_on_card(cuda_device):
     _reset_counts()
     u, v, m, d = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
                                         batch_mode="vmap", device="cuda")
-    _assert_launch_relation(kernels.launch_counts(), "fused_pointwise",
-                            int(d["iterations"].max()))
+    _assert_launch_relation(kernels.launch_counts(),
+                            _pallas_launches(int(d["iterations"].max())))
     um, vm, mm, dm = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
                                             device="cuda")
     for i in range(3):
@@ -691,6 +792,86 @@ def test_lockstep_pairs_are_bitwise_their_single_solves_on_card(
         assert int(states.iteration[i]) == one.iteration
         assert torch.equal(states.phi[i], one.phi)
         assert torch.equal(states.mu[i], one.mu)
+
+
+def _plain_stencil_pallas(lockstep):
+    """The ``pallas`` set with the plain stencils in place of the stencil
+    kernels (#1 kept), single-pair or lockstep."""
+    from ofot_tpu_torch.ops import operators
+    from ofot_tpu_torch.solvers import foto
+
+    class PlainStencils(foto.PallasOps):
+        grad_st = staticmethod(operators.grad_st)
+        stepA_rhs = foto._DefaultOps.stepA_rhs
+
+    class LockstepPlainStencils(foto._Lockstep, PlainStencils):
+        fused_pointwise = staticmethod(foto._fused_batched)
+
+    return LockstepPlainStencils() if lockstep else PlainStencils()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lockstep", [False, True])
+def test_foto_pallas_solve_keeps_its_bits_with_the_stencil_kernels_on_card(
+        cuda_device, lockstep):
+    """A 320x240 FOTO ``pallas`` solve on the device loop, single-pair or a
+    lockstep batch of 4 with per-pair r: phi, u, v, m and the iteration
+    counts bitwise those of the same solve with the plain stencils, and
+    one launch of each stencil kernel an iteration (the replay
+    relation)."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.solvers import flow_extract, foto
+    pairs = [_texture_pair(240, 320, shift=s, seed=5 + i) for i, s in
+             enumerate([(2, 3), (-1, 2), (3, -2), (1, 1)])]
+    a, b = (torch.from_numpy(np.stack(f).astype(np.float32)).to(cuda_device)
+            for f in zip(*pairs))
+    kw = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=200,
+              admm_alpha=1.7, loop="device")
+    if lockstep:
+        run = functools.partial(foto.alg2_loop_batched, a, b, 16,
+                                auto_r=True, **kw)
+    else:
+        run = functools.partial(foto.alg2_loop, a[0], b[0], 16, **kw)
+    _reset_counts()
+    st = run(ops=foto.stepA_ops("pallas"))
+    iterations = (int(st.iteration.max()) if lockstep else st.iteration)
+    _assert_launch_relation(kernels.launch_counts(),
+                            _pallas_launches(iterations))
+    want = run(ops=_plain_stencil_pallas(lockstep))
+    assert torch.equal(torch.as_tensor(st.iteration),
+                       torch.as_tensor(want.iteration))
+    for got, ref in ((st.phi, want.phi), (st.mu, want.mu), (st.q, want.q)):
+        assert _same_bits(got, ref)
+    for i in range(len(a) if lockstep else 1):
+        one, ref = ((st.phi[i], want.phi[i]) if lockstep
+                    else (st.phi, want.phi))
+        for f, g in zip(flow_extract.flow_from_potential(one),
+                        flow_extract.flow_from_potential(ref)):
+            assert _same_bits(f, g)
+
+
+@pytest.mark.cuda
+def test_stencil_kernels_launch_once_an_alg2_iteration_on_card(cuda_device):
+    """On the host loop each stencil kernel launches exactly once an ALG2
+    iteration of the ``pallas`` set (FOTO; WFR the gradient only), and GN
+    launches none."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.solvers import foto, gn, wfr
+    a, b = (torch.as_tensor(x[0], device=cuda_device)
+            for x in _blob_pairs(1, 40, 48))
+    kw = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=30,
+              admm_alpha=1.7, loop="host", ops=foto.stepA_ops("pallas"))
+    _reset_counts()
+    st = foto.alg2_loop(a, b, 8, **kw)
+    assert kernels.launch_counts() == dict(
+        {k: 0 for k in kernels.KERNELS}, **_pallas_launches(st.iteration))
+    _reset_counts()
+    st = wfr.alg2_loop(a, b, 8, delta=2.5, **kw)
+    assert kernels.launch_counts() == dict(
+        {k: 0 for k in kernels.KERNELS}, **_pallas_launches(0, st.iteration))
+    _reset_counts()
+    gn.solve_fields(a, b)
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 @pytest.mark.cuda
@@ -817,7 +998,9 @@ def test_device_loop_launch_relation_on_card(cuda_device, solver, kernel):
             + s.replays * K
         assert s.eager_launches.get(kernel, 0) == (1 if cold else 0)
         assert st.iteration <= s.replays * K < st.iteration + K
-        _assert_launch_relation(launches, kernel, st.iteration)
+        _assert_launch_relation(
+            launches, _pallas_launches(st.iteration) if solver == "pallas"
+            else {kernel: st.iteration})
 
 
 def _graft_step_f64(device):
