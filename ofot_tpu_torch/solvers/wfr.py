@@ -39,6 +39,7 @@ import torch
 from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.solvers import flow_extract, foto
 from ofot_tpu_torch.solvers.flow_extract import flow_from_potential  # noqa: F401
+from ofot_tpu_torch.utils import trace
 
 
 class WfrResult(NamedTuple):
@@ -50,13 +51,10 @@ class WfrResult(NamedTuple):
     #                        time axis: multiplicative brightness change - 1
     source: torch.Tensor   # (Nt, Ny, Nx) zeta = sigma / delta
     state: foto.FotoState
-
-    @property
-    def m_combined(self) -> torch.Tensor:
-        """Luminosity with the growth composed into the -div dilution
-        correction, ``1 + m_combined = (1 + growth)(1 + m)``: the field the
-        CLI ships in the ``m`` slot."""
-        return combined_luminosity(self.m, self.growth)
+    m_combined: torch.Tensor  # (Ny, Nx) luminosity with the growth
+    #                        composed into the -div dilution correction,
+    #                        1 + m_combined = (1 + growth)(1 + m): the
+    #                        field the CLI ships in the ``m`` slot
 
 
 def resolve_stepA_solver(solver: str, device) -> str:
@@ -241,17 +239,22 @@ def solve(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
           init: foto.FotoState | None = None,
           loop: str = "auto") -> WfrResult:
     """Full unbalanced solve: potential -> (u, v, m) displacement flow plus
-    the source/growth fields balanced OT cannot represent."""
-    state = solve_potential(rho0, rhoT, Nt, delta=delta, r=r,
-                            convergence_tol=convergence_tol,
-                            reg_epsilon=reg_epsilon, max_it=max_it,
-                            cg_rtol=cg_rtol, cg_maxiter=cg_maxiter,
-                            verbose=verbose, ops=ops,
-                            admm_alpha=admm_alpha, auto_r=auto_r,
-                            init=init, loop=loop)
-    u, v, m, growth, source = _postprocess(state, delta)
-    return WfrResult(u=u, v=v, m=m, growth=growth, source=source,
-                     state=state)
+    the source/growth fields balanced OT cannot represent.  Span
+    ``wfr.solve`` around ``alg2.loop`` and ``wfr.extract`` (the flow,
+    growth, source and ``m_combined``)."""
+    with trace.annotate("wfr.solve"):
+        state = solve_potential(rho0, rhoT, Nt, delta=delta, r=r,
+                                convergence_tol=convergence_tol,
+                                reg_epsilon=reg_epsilon, max_it=max_it,
+                                cg_rtol=cg_rtol, cg_maxiter=cg_maxiter,
+                                verbose=verbose, ops=ops,
+                                admm_alpha=admm_alpha, auto_r=auto_r,
+                                init=init, loop=loop)
+        with trace.annotate("wfr.extract"):
+            u, v, m, growth, source = _postprocess(state, delta)
+            m_combined = combined_luminosity(m, growth)
+        return WfrResult(u=u, v=v, m=m, growth=growth, source=source,
+                         state=state, m_combined=m_combined)
 
 
 def _postprocess(state: foto.FotoState, delta):

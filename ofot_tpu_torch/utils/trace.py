@@ -32,7 +32,8 @@ counters:
 
 The solvers open these spans (at layer boundaries, never inside a block
 the device loop captures, which would run once at capture):
-``foto.solve`` > ``alg2.loop``, ``foto.extract``; ``gn.solve`` >
+``foto.solve`` > ``alg2.loop``, ``foto.extract``; ``wfr.solve`` >
+``alg2.loop``, ``wfr.extract``; ``gn.solve`` >
 ``gn.setup``, ``cg.loop``; ``sweep.batch`` > ``lockstep.loop``,
 ``lockstep.extract``; inside the loops ``device_loop.capture``,
 ``device_loop.launch`` (a replay) and ``device_loop.flag_read`` (a host

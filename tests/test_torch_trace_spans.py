@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from ofot_tpu_torch.parallel import sweep
-from ofot_tpu_torch.solvers import device_loop, foto, gn
+from ofot_tpu_torch.solvers import device_loop, foto, gn, wfr
 from ofot_tpu_torch.utils import trace
 
 import fixtures
@@ -47,6 +47,12 @@ def _foto(ops=None, loop="device"):
                       **FOTO_KW)
 
 
+def _wfr(loop="device"):
+    a, b = _pair()
+    return wfr.solve(a, b, NT, ops=foto.stepA_ops("dct"), loop=loop,
+                     delta=2.5, admm_alpha=1.7, **FOTO_KW)
+
+
 def _gn(loop="device"):
     a, b = _pair()
     return gn.solve_fields(a, b, loop=loop)
@@ -71,8 +77,8 @@ def _one(rec, name):
     return found[0]
 
 
-@pytest.mark.parametrize("solve", [_foto, _gn, _lockstep],
-                         ids=["foto", "gn", "lockstep"])
+@pytest.mark.parametrize("solve", [_foto, _gn, _lockstep, _wfr],
+                         ids=["foto", "gn", "lockstep", "wfr"])
 def test_spans_off_by_default_record_nothing(solve):
     builds = trace.counts().get("dct.builds", 0)
     solve()
@@ -104,6 +110,22 @@ def test_foto_solve_is_a_root_over_its_loop_and_extraction():
     assert loop.end_ns <= extract.start_ns
     # every span of the solve shares the root's request id
     assert {s.request for s in rec.spans} == {root.index}
+
+
+def test_wfr_solve_is_a_root_over_its_loop_and_extraction():
+    trace.enable(True)
+    _wfr()
+    rec = trace.spans()
+    root = _one(rec, "wfr.solve")
+    loop, extract = _one(rec, "alg2.loop"), _one(rec, "wfr.extract")
+    assert root.parent == -1 and root.request == root.index
+    for child in (loop, extract):
+        assert child.parent == root.index
+        assert root.start_ns <= child.start_ns <= child.end_ns \
+            <= root.end_ns
+    assert loop.end_ns <= extract.start_ns
+    assert {s.request for s in rec.spans} == {root.index}
+    assert "foto.solve" not in _names(rec)
 
 
 @pytest.mark.parametrize("solve", [_foto, _gn], ids=["foto", "gn"])
