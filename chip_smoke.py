@@ -253,6 +253,7 @@ from ofot_tpu_torch.ops import kernels
 from ofot_tpu_torch.ops.kernels import _build
 from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.ops.kernels import dct_solve as ds
+from ofot_tpu_torch.ops.kernels import loop_mask as lm
 from ofot_tpu_torch.ops.kernels import projection as pk
 from ofot_tpu_torch.ops.kernels import stencil_st as ss
 from ofot_tpu_torch.ops import operators
@@ -1108,6 +1109,89 @@ def check_stencil_st(device, mem_bw, f32_rate):
     return out
 
 
+# the device loop's carry at the timed shapes: FOTO's three fields (mu, q
+# (3, Nt, Ny, Nx) and phi) and its five per-pair scalars (crit,
+# prev_crit, iteration, cg_iterations, done)
+LOOP_MASK_TIMED = ((SHAPE, None), ((16, 480, 640), None), (SHAPE, 8))
+
+
+def loop_mask_inputs(shape, device, seed, batch=None):
+    """(fields, held, new scalars, old scalars) of one FOTO carry."""
+    lead = () if batch is None else (batch,)
+    fields = [_random(lead + (3,) + shape, device, seed),
+              _random(lead + (3,) + shape, device, seed + 1),
+              _random(lead + shape, device, seed + 2)]
+    held = [torch.zeros_like(f) for f in fields]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    new, old = ([torch.rand(lead, generator=g).to(device),
+                 torch.rand(lead, generator=g).to(device),
+                 torch.randint(0, 200, lead, generator=g).to(device),
+                 torch.randint(0, 9000, lead, generator=g).to(device),
+                 (torch.rand(lead, generator=g) < 0.5).to(device)]
+                for _ in range(2))
+    return fields, held, new, old
+
+
+def check_loop_mask(device, mem_bw, f32_rate):
+    """Phase 7, the device loop's mask kernels: bitwise their plain
+    versions; the select and a latch where no pair stops timed as what
+    they are, launches (device time beside the smallest launch's), and a
+    latch where one pair stops, warm and cold, beside its bytes bound (the
+    pair's three fields read once and written once)."""
+    out = {}
+    for shape, batch in LOOP_MASK_TIMED:
+        fields, held, new, old = loop_mask_inputs(shape, device, SEED + 60,
+                                                  batch)
+        lead = () if batch is None else (batch,)
+        on = torch.ones(lead, dtype=torch.bool, device=device)
+        stop = on.clone()
+        stop.view(-1)[0] = False               # pair 0 stops, the rest run
+        label = f"{shape} batch {batch}"
+        for run, nxt in ((on, on), (on, stop), (on & stop, stop)):
+            want = lm.latch_fields_reference(run, nxt, fields, held)
+            got = lm.latch_fields(run, nxt, fields,
+                                  [h.clone() for h in held])
+            sel = lm.select_scalars(run, new, old)
+            if not (all(map(torch.equal, got, want)) and all(map(
+                    torch.equal, sel,
+                    lm.select_scalars_reference(run, new, old)))):
+                raise AssertionError(f"loop mask {label}: not bitwise")
+        seg = sum(f.numel() // (batch or 1) * f.element_size()
+                  for f in fields)
+        nbytes = 2 * seg
+        select = time_kernel(lm.prepare_select_scalars(on, new, old)[0],
+                             lambda: lm.select_scalars_reference(on, new,
+                                                                 old),
+                             one_kernel=True)
+        idle = time_kernel(lm.prepare_latch_fields(on, on, fields, held),
+                           lambda: lm.latch_fields_reference(on, on, fields,
+                                                             held),
+                           one_kernel=True)
+        fire = time_kernel(lm.prepare_latch_fields(on, stop, fields, held),
+                           lambda: lm.latch_fields_reference(on, stop,
+                                                             fields, held),
+                           one_kernel=True)
+        bound_ms, bound_by = bound(nbytes, 0, mem_bw, f32_rate)
+        _log(f"  loop mask {label}: select_scalars {select['ms']:.4f} ms "
+             f"by events, {select['device_ms']:.4f} ms device (plain "
+             f"{select['plain_device_ms']:.4f}); latch_fields with no stop "
+             f"{idle['ms']:.4f} / {idle['device_ms']:.4f} ms (plain "
+             f"{idle['plain_device_ms']:.4f})")
+        _timing_line(f"latch_fields {label}, one pair stops", fire,
+                     bound_ms, bound_by, nbytes, 0)
+        cold = cold_times(lambda i: lm.prepare_latch_fields(
+            on, stop, *loop_mask_inputs(shape, device, SEED + 70 + 10 * i,
+                                        batch)[:2]), nbytes)
+        _log(f"  latch_fields {label} cold: {cold['cold_ms']:.4f} ms by "
+             f"events, {cold['cold_device_ms']:.4f} ms device over "
+             f"{cold['cold_sets']} rotating sets; kernel at "
+             f"{100 * bound_ms / cold['cold_device_ms']:.1f}% of bound by "
+             "cold device time")
+        out[(shape, batch)] = dict(select=select, idle=idle, fire=fire,
+                                   bound_ms=bound_ms, **cold)
+    return out
+
+
 def launch_floor_ms(device) -> float:
     """The device time of the smallest launch: one in-place add to a
     one-element tensor, by ``device_time_ms`` (the kernels' own method)."""
@@ -1189,6 +1273,11 @@ def reset_counts() -> None:
     device_loop.reset_stats()
 
 
+# the device loop's own kernels (ops/kernels/loop_mask.py): one launch
+# each an iteration slot of every while loop's block, whatever the solver
+LOOP_MASK = ("select_scalars", "latch_fields")
+
+
 def check_launches(label, launches, expect, loops=None):
     """``expect`` gives, per kernel, the launches of the host loop: the
     iterations (or CG steps) that launch it once each; every other kernel
@@ -1197,11 +1286,18 @@ def check_launches(label, launches, expect, loops=None):
     relation instead: launches = warm-up launches + replayed launches,
     replayed launches = the iteration slots of the replays that launched
     it (replays x K), and iterations <= slots <= iterations + (K - 1) a
-    loop."""
-    want = {k: 0 for k in kernels.KERNELS}
+    loop.  The device loop's mask kernels (``LOOP_MASK``) are held to the
+    replay relation alone, and the latch's replayed launches to
+    ``loops.latch_slots``; without ``loops`` they are not checked."""
+    want = {k: 0 for k in kernels.KERNELS
+            if loops is not None or k not in LOOP_MASK}
     want.update(expect)
     replayed = {} if loops is None else loops.graph_launches
     bad = []
+    if loops is not None and replayed.get("latch_fields", 0) \
+            != loops.latch_slots:
+        bad.append(f"latch_fields: {replayed.get('latch_fields', 0)} "
+                   f"replayed launches, {loops.latch_slots} latch slots")
     for k, n in want.items():
         if not replayed.get(k):
             if launches[k] != n:
@@ -1209,8 +1305,9 @@ def check_launches(label, launches, expect, loops=None):
             continue
         eager, graph = loops.eager_launches.get(k, 0), replayed[k]
         slots, spare = loops.kernel_slots[k], loops.kernel_spare.get(k, 0)
+        bounded = k in LOOP_MASK or n <= slots <= n + spare
         if not (launches[k] == eager + graph and graph == slots
-                and eager <= loops.captures and n <= slots <= n + spare):
+                and eager <= loops.captures and bounded):
             bad.append(f"{k}: {launches[k]} launches = {eager} eager + "
                        f"{graph} replayed over {slots} slots (spare "
                        f"{spare}, {loops.captures} captures), for {n} "
@@ -3293,8 +3390,9 @@ def device_loop_phase(rho):
                             replays=loops.replays, slots=loops.slots)
             _log(f"  K sweep, foto pallas, K={K}: {its} iterations, warm "
                  f"{seconds:.4f} s ({sweep[K]['ms']:.4f} ms each), "
-                 f"{loops.replays} replays ({loops.slots - its} masked "
-                 f"iterations), capture {cold[3].capture_ms:.2f} ms")
+                 f"{loops.replays} replays ({loops.slots - its} "
+                 f"iterations past the stop), capture "
+                 f"{cold[3].capture_ms:.2f} ms")
     finally:
         device_loop.BLOCK = block
     out["K sweep"] = sweep
@@ -3637,8 +3735,10 @@ def graft_entry_phase():
             or not np.isfinite(crit):
         raise AssertionError(f"entry() on {CARD}: phi {tuple(phi.shape)}, "
                              f"crit {crit}")
-    if any(launches.values()):
-        raise AssertionError(f"entry()'s default set launched {launches}")
+    # the default set launches no solver kernel; its CG's device loop
+    # only the loop's own mask kernels
+    check_launches("entry()'s default set", launches, {},
+                   loops=device_loop.stats)
     cpu_fn, cpu_args = graft_entry.entry(device="cpu")
     t0 = time.perf_counter()
     cpu_phi, cpu_crit = cpu_fn(*cpu_args)
@@ -3747,6 +3847,7 @@ def main() -> int:
             cg_err, cg_recs = check_cg_operator(device, mem_bw, f32_rate)
             tile_rec = check_cg_operator_tile(device, mem_bw, f32_rate)
             stencil_recs = check_stencil_st(device, mem_bw, f32_rate)
+            check_loop_mask(device, mem_bw, f32_rate)
 
         with Phase("8 paths"):
             paths = run_paths(workdir)

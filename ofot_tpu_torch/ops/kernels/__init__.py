@@ -20,6 +20,8 @@ KERNELS = {
     "cg_operator_tile": ("cg_operator", "tile_launches"),
     "stencil_grad_st": ("stencil_st", "grad_st_launches"),
     "stencil_stepA_rhs": ("stencil_st", "stepA_rhs_launches"),
+    "select_scalars": ("loop_mask", "select_launches"),
+    "latch_fields": ("loop_mask", "latch_launches"),
 }
 
 

@@ -123,6 +123,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path()))
     vp, c_int = ctypes.c_void_p, ctypes.c_int
     c_ll, c_float = ctypes.c_longlong, ctypes.c_float
+    vps = ctypes.POINTER(vp)
     signatures = {
         "ofot_fused_pointwise": [
             vp, vp, vp, vp, vp, vp, vp,       # gphi mu qprev q mu' parts sums
@@ -153,6 +154,14 @@ def load_library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,               # mu q rho0 rhoT F
             c_int, c_int, c_int, c_int,       # batch Nt Ny Nx
             c_float, vp, vp],                 # r r_pairs stream
+        "ofot_loop_select_scalars": [
+            vp, c_int, c_int,                 # run pairs nfields
+            vps, vps, vps,                    # new old out (pointer arrays)
+            ctypes.POINTER(c_int), vp],       # element sizes, stream
+        "ofot_loop_latch_fields": [
+            vp, vp, c_int, c_int,             # run nxt pairs nfields
+            vps, vps,                         # src held (pointer arrays)
+            ctypes.POINTER(c_ll), vp],        # segment bytes, stream
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

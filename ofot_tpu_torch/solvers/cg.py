@@ -6,10 +6,11 @@ benamou_brenier.py:85): start from x0 = 0, stop when
 ``||r||_2 <= max(rtol * ||b||_2, atol)`` or after ``maxiter`` iterations.
 
 The JAX version runs a ``lax.while_loop`` on the device.  Here
-``loop="device"`` (the default on cuda) runs the masked form of the
-iteration in blocks of K steps (``solvers/device_loop.py``): a step after
-the stop leaves every field as it was, and the loop reads the residual
-test once per block.  ``loop="host"`` (the default on the CPU) reads the
+``loop="device"`` (the default on cuda) runs the iteration in blocks of K
+steps (``solvers/device_loop.py``): steps after the stop leave the
+scalars (``rz``, ``rnorm2``, ``k``) as they were, ``x``, ``r`` and ``p``
+are kept as they were at the stop, and the loop reads the residual test
+once per block.  ``loop="host"`` (the default on the CPU) reads the
 squared residual norm once per step.  Both give the same bits.
 
 A captured block bakes in what ``A``, ``M`` and ``dot`` close over, so a
@@ -52,8 +53,8 @@ class _CGState(NamedTuple):
 
 def _device_cg(A, precond, dot, M, state: _CGState, thresh2, maxiter, key,
                bound, per_pair):
-    """The masked CG iteration on the device loop; ``per_pair`` shapes a
-    (B,) scalar to its batch (identity for one system)."""
+    """The CG iteration on the device loop; ``per_pair`` shapes a (B,)
+    scalar to its batch (identity for one system)."""
     def running(s, thresh2):
         return (s.k < maxiter) & (s.rnorm2 > thresh2)
 
@@ -146,13 +147,15 @@ def cg_batched(A: Callable, b: torch.Tensor, *,
 
     Each pair keeps scipy's stop ``||r|| <= max(rtol*||b||, atol)`` and its
     own step count: a pair that has met it, or has taken ``maxiter``
-    steps, keeps its ``x``, ``r``, ``p`` and scalars through
-    ``torch.where`` (its ``p.Ap`` can be 0, so its alpha can be NaN, and a
-    multiplied mask would carry that NaN in).  The loop reads one "any
-    pair still running" flag per block of K steps (``loop="device"``) or
-    per step (``loop="host"``), as :func:`cg` does.  Returns a CGResult
-    whose ``iterations``, ``residual`` and ``converged`` are (B,)
-    tensors."""
+    steps, keeps its ``x``, ``r``, ``p`` and scalars: through
+    ``torch.where`` on the host loop, as frozen scalars and fields latched
+    at its stop on the device loop (its ``p.Ap`` can be 0, so its alpha
+    can be NaN, and a multiplied mask would carry that NaN in; the dots
+    reduce pair by pair, so a NaN of one pair never reaches another).  The
+    loop reads one "any pair still running" flag per block of K steps
+    (``loop="device"``) or per step (``loop="host"``), as :func:`cg`
+    does.  Returns a CGResult whose ``iterations``, ``residual`` and
+    ``converged`` are (B,) tensors."""
     if dot is None:
         def dot(u, v):
             return torch.sum((u * v).flatten(1), dim=1)

@@ -5,25 +5,43 @@ The JAX package runs every solver loop inside one jitted program, so the
 host never waits on the device until the loop is done.  Here a loop on
 CUDA tensors runs as replays of a captured ``torch.cuda.CUDAGraph`` of K
 iterations: the host reads one "still running" flag per replay, not one
-per iteration.  Inside a block, an iteration whose stopping rule has
-already fired leaves every field as it was, through a select on
-``running``:
+per iteration.  Inside a block, iterations run on past a stop (at most
+K - 1 for one pair; in a lockstep batch, a stopped pair until the batch
+ends), so each pair's result is frozen at its own stop:
 
-    state = select(running(state), step(state), state)     # K times
+    run = running(state)
+    K times:
+        new = step(state)
+        state = new, with its per-pair scalars select(run, new, state)
+        nxt = running(state)                # sticky: done, counts frozen
+        held = latch(run & ~nxt, state, held)
+        run = nxt
 
-which is what ``lax.while_loop`` gives (and, for a lockstep batch, what
-``jax.vmap`` of it gives: a (B,) ``running`` selects pair by pair).  The
-same kernels run in the same order on the same values, so the result is
-bitwise the host loop's.
+A carried tensor with one element a pair (0-d for one pair, (B,) for a
+lockstep batch: criteria, counters, flags) is a per-pair scalar, selected
+every iteration, so a stopped pair's counters and flags stay as they were
+and its ``running`` stays false.  A larger one is a field: it is carried
+unmasked, and each pair's part of it is copied into the loop's held
+buffers once, on the iteration where that pair stops (``latch``); the
+loop returns the held fields with the scalars.  The held fields are
+``new`` of the stopping iteration, which is what the host loop keeps, and
+pairs never mix (every per-pair sum and product of a batch contracts
+within its pair), so the result is bitwise the host loop's, as
+``lax.while_loop`` (and, for a batch, ``jax.vmap`` of it) gives.  Both
+steps are one kernel launch each on cuda (``ops/kernels/loop_mask.py``)
+and their plain versions on the CPU.
 
 * ``loop="auto"`` is ``"device"`` on cuda and ``"host"`` on the CPU.  On
-  the CPU ``"device"`` runs the same blocked, masked body eagerly, with
-  no capture; the tests exercise that form.
+  the CPU ``"device"`` runs the same blocked body eagerly, with no
+  capture; the tests exercise that form.
 * Before a capture, the body runs once eagerly on the loop's own stream
   (the warm-up: plans, the kernel library and the cuBLAS handles are
   built on first use and must exist before capture), with its result
   dropped.  The capture then records the block and the copy of its result
-  back into the graph's static input buffers, so replays chain.
+  back into the graph's static input buffers, so replays chain.  The held
+  fields are static buffers of the graph too: loaded with the start state
+  (a pair that starts stopped keeps it), written only by the latch, in
+  place, and never copied back.
 * Every tensor the body reads is either a field of the state or one of
   ``args``: both are copied into the graph's static buffers before the
   first replay of each loop.  Everything else the body closes over (the
@@ -41,12 +59,13 @@ bitwise the host loop's.
   every replay, so launches = eager launches (warm-ups included) +
   replays x launches per graph.
 
-``stats`` records captures, their milliseconds, replays and the
-iteration slots the replays offered (replays x K), for the launch and
-iteration relations that ``chip_smoke.py`` checks: per kernel, launches =
-warm-up launches + replayed launches, replayed launches = the slots of the
-replays that launched it, and iterations <= slots <= iterations + (K - 1)
-a loop.
+``stats`` records captures, their milliseconds, replays, the iteration
+slots the replays offered (replays x K) and those of them whose fields
+went through the latch (``latch_slots``, also the trace counter
+``device_loop.latch_slots``), for the launch and iteration relations that
+``chip_smoke.py`` checks: per kernel, launches = warm-up launches +
+replayed launches, replayed launches = the slots of the replays that
+launched it, and iterations <= slots <= iterations + (K - 1) a loop.
 """
 
 from __future__ import annotations
@@ -59,11 +78,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from ofot_tpu_torch.ops import kernels
+from ofot_tpu_torch.ops.kernels import loop_mask
+from ofot_tpu_torch.utils import trace as _trace
 from ofot_tpu_torch.utils.trace import annotate
 
 # Iterations per block (K).  K = 1 reads the card every iteration; from
 # K = 4 on, an ALG2 iteration costs the same on the card, while the
-# capture's time and the masked iterations past the stop (at most K - 1)
+# capture's time and the iterations run past the stop (at most K - 1)
 # grow with K (PERF.md §6: the K sweep of chip_smoke.py's phase 19).
 BLOCK = 8
 # Captured graphs kept; each pins its private memory pool.
@@ -76,10 +97,11 @@ class Stats:
     capture_ms: float = 0.0
     replays: int = 0                # blocks run (replays, or eager blocks)
     slots: int = 0                  # sum over replays of the block's K
+    latch_slots: int = 0            # the slots of blocks with a latch
     eager_launches: dict = field(default_factory=dict)   # warm-ups
     graph_launches: dict = field(default_factory=dict)   # by replays
     # per kernel: the slots of the replays that launched it, and the
-    # masked iterations its loops may have run past their stops (K - 1 a
+    # iterations its loops may have run past their stops (K - 1 a
     # while loop), so that iterations <= slots <= iterations + spare
     kernel_slots: dict = field(default_factory=dict)
     kernel_spare: dict = field(default_factory=dict)
@@ -102,13 +124,11 @@ def resolve(loop: str, device) -> str:
     return loop
 
 
-def select(run: torch.Tensor, new, old):
-    """Field by field, ``new`` where ``run`` else ``old``; ``run`` is 0-d
-    or (B,) (one flag per pair of a batch)."""
-    def sel(n, o):
-        return torch.where(run.view(run.shape + (1,) * (n.dim() - run.dim())),
-                           n, o)
-    return type(new)(*(sel(n, o) for n, o in zip(new, old)))
+def select(run: torch.Tensor, new, old) -> tuple:
+    """Pair by pair, ``new`` where ``run`` else ``old``, for the per-pair
+    scalars of a loop's state (each with one element a pair; ``run`` 0-d,
+    or (B,) one flag per pair of a batch): one launch on cuda."""
+    return loop_mask.select_scalars(run, tuple(new), tuple(old))
 
 
 # ------------------------------------------------------------ counters
@@ -180,11 +200,15 @@ class _Graph:
                 self.graph.capture_begin()
                 try:
                     new, self.outs = fn(tuple(self.state), tuple(self.args))
+                    # a buffer the block returns as itself was written in
+                    # place (the held fields): nothing to copy back
                     ins = {t.data_ptr() for t in self.state + self.args}
-                    new = [n.clone() if n.data_ptr() in ins else n
-                           for n in new]
+                    new = [n if n is buf else
+                           n.clone() if n.data_ptr() in ins else n
+                           for buf, n in zip(self.state, new)]
                     for buf, n in zip(self.state, new):
-                        buf.copy_(n)
+                        if n is not buf:
+                            buf.copy_(n)
                 finally:
                     self.graph.capture_end()
         except Exception as e:
@@ -211,8 +235,11 @@ class _Graph:
         stats.slots += self.iters
         return self.outs
 
-    def result(self) -> tuple:
-        return tuple(t.clone() for t in self.state)
+    def result(self, take=None) -> tuple:
+        """Copies of the state buffers (``take``: of those at these
+        indices)."""
+        ts = self.state if take is None else [self.state[i] for i in take]
+        return tuple(t.clone() for t in ts)
 
 
 class _Eager:
@@ -232,11 +259,19 @@ class _Eager:
         stats.slots += self.iters
         return outs
 
-    def result(self) -> tuple:
-        return self.state
+    def result(self, take=None) -> tuple:
+        return (self.state if take is None else
+                tuple(self.state[i] for i in take))
 
 
 _cache: OrderedDict = OrderedDict()
+
+
+def _check_tensors(ts) -> None:
+    for t in ts:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"a device loop carries tensors only, got "
+                            f"{type(t).__name__}")
 
 
 def clear_cache() -> None:
@@ -258,10 +293,7 @@ def runner(fn: Callable, state, args=(), *, key=None, iters: int = 1,
     ``fn`` closes over and a later solve with the same ``key`` brings anew
     (copied into the cached graph's own, which it read at capture)."""
     state, args, bound = tuple(state), tuple(args), tuple(bound)
-    for t in (*state, *args):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"a device loop carries tensors only, got "
-                            f"{type(t).__name__}")
+    _check_tensors((*state, *args))
     device = state[0].device
     if device.type != "cuda":
         return _Eager(fn, state, args, iters)
@@ -291,24 +323,51 @@ def _loaded(g: _Graph, state, args) -> _Graph:
 
 # ------------------------------------------------------------ loops
 
-def _block(step, running, n: int, cls, trace):
-    """The body of ``n`` masked iterations; ``outs`` is (still running,)
-    plus, with ``trace``, the (n,) "ran" flags and the stacked records."""
+def _fields(state, flag: torch.Tensor) -> tuple:
+    """The indices of ``state``'s fields: its tensors with more elements
+    than the running ``flag`` (the rest, one element a pair, are its
+    per-pair scalars)."""
+    _check_tensors(state)
+    pairs = flag.numel()
+    for name, t in zip(type(state)._fields, state):
+        if t.numel() < pairs:
+            raise ValueError(f"{name} of shape {tuple(t.shape)} has fewer "
+                             f"elements than the {pairs} pair(s) of the "
+                             "running flag")
+    return tuple(i for i, t in enumerate(state) if t.numel() > pairs)
+
+
+def _block(step, running, n: int, cls, trace, fields):
+    """The body of ``n`` iterations on ``(state, held)``: per-pair scalars
+    selected, the ``fields`` (indices) carried unmasked and latched into
+    ``held`` at each pair's stop.  ``outs`` is (still running,) plus, with
+    ``trace``, the (n,) "ran" flags and the stacked records."""
+    m = len(cls._fields)
+    scalars = tuple(i for i in range(m) if i not in fields)
+
     def fn(s, a):
-        s = cls(*s)
+        s, held = cls(*s[:m]), tuple(s[m:])
+        run = running(s, *a)
         ran, recs = [], []
         for _ in range(n):
-            run = running(s, *a)
-            new = step(s, *a)
+            new = list(step(s, *a))
+            kept = select(run, (new[i] for i in scalars),
+                          (s[i] for i in scalars))
+            for i, t in zip(scalars, kept):
+                new[i] = t
+            old, s = s, cls(*new)
+            nxt = running(s, *a)
             if trace is not None:
                 ran.append(run.any())
-                recs.append(trace(s, new))
-            s = select(run, new, s)
-        outs = (running(s, *a).any(),)
+                recs.append(trace(old, s))
+            held = loop_mask.latch_fields(run, nxt, [s[i] for i in fields],
+                                          held)
+            run = nxt
+        outs = (run.any(),)
         if trace is not None:
             outs += (torch.stack(ran),
                      *(torch.stack(r) for r in zip(*recs)))
-        return tuple(s), outs
+        return (*s, *held), outs
     return fn
 
 
@@ -316,29 +375,38 @@ def while_loop(step: Callable, running: Callable, state: NamedTuple,
                args=(), *, key=None, trace: Callable | None = None,
                show: Callable | None = None, bound=()) -> NamedTuple:
     """``state = step(state, *args)`` while ``running(state, *args)``, in
-    blocks of ``BLOCK`` masked iterations with one flag read per block
-    (and one before the first).
+    blocks of ``BLOCK`` iterations with one flag read per block (and one
+    before the first); each pair's result is its state at its own stop
+    (see the module docstring).
 
     ``state``: a NamedTuple of tensors; ``running`` returns a 0-d flag or
-    one flag per pair ((B,)).  ``step`` must not write into its inputs.
-    ``trace(old, new)`` returns a tuple of tensors recorded per iteration;
-    after each block ``show(*values)`` gets, for every iteration that ran
-    (any pair running), its records as Python values: the host loop's
-    per-iteration prints, in order.  ``key`` and ``bound`` as in
-    :func:`runner`."""
+    one flag per pair ((B,)), and reads only the per-pair scalars and
+    ``args``, so that it stays false once they are frozen (the fields run
+    on past the stop).  ``step`` must not write into its inputs.
+    ``trace(old, new)`` returns a tuple of tensors recorded per iteration,
+    ``new`` with its per-pair scalars selected; after each block
+    ``show(*values)`` gets, for every iteration that ran (any pair
+    running), its records as Python values: the host loop's per-iteration
+    prints, in order.  ``key`` and ``bound`` as in :func:`runner`."""
     K = BLOCK
     cls = type(state)
     with annotate("device_loop.flag_read"):
-        run = bool(running(state, *args).any())
+        flag = running(state, *args)
+        run = bool(flag.any())
     if not run:
         return state
-    body = _block(step, running, K, cls, trace)
-    r = runner(body, state, args,
+    fields = _fields(state, flag)
+    body = _block(step, running, K, cls, trace, fields)
+    r = runner(body, (*state, *(state[i] for i in fields)), args,
                key=None if key is None else (key, trace is not None), iters=K,
-               warmup=_block(step, running, 1, cls, trace), bound=bound)
+               warmup=_block(step, running, 1, cls, trace, fields),
+               bound=bound)
     while True:
         with annotate("device_loop.launch"):
             outs = r.replay()
+        if fields:
+            stats.latch_slots += K
+            _trace.count("device_loop.latch_slots", K)
         with annotate("device_loop.flag_read"):
             if trace is not None:
                 ran = outs[1].tolist()
@@ -350,7 +418,9 @@ def while_loop(step: Callable, running: Callable, state: NamedTuple,
         if not run:
             _tally(stats.kernel_spare,
                    dict.fromkeys(getattr(r, "launches", ()), K - 1))
-            return cls(*r.result())
+            m = len(cls._fields)
+            held = {i: m + j for j, i in enumerate(fields)}
+            return cls(*r.result([held.get(i, i) for i in range(m)]))
 
 
 def fori_loop(step: Callable, state: NamedTuple, n: int, args=(), *,

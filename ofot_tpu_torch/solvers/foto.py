@@ -254,11 +254,15 @@ class _Lockstep:
     def div_st(mu, bc="N"):
         return operators.div_st(mu, bc=bc, dim=1)
 
+    # contiguous: the device loop latches a stopped pair's fields as
+    # contiguous segments (solvers/device_loop.py)
     def project(self, p):
-        return super().project(p.transpose(0, 1)).transpose(0, 1)
+        return super().project(p.transpose(0, 1)).transpose(0, 1) \
+            .contiguous()
 
     def project_nd(self, p):
-        return super().project_nd(p.transpose(0, 1)).transpose(0, 1)
+        return super().project_nd(p.transpose(0, 1)).transpose(0, 1) \
+            .contiguous()
 
 
 def _fused_batched(grad_phi, mu, r, alpha=None, q_prev=None):
@@ -448,12 +452,13 @@ def loop_mode(loop, ops, device) -> str:
 
 
 def _verbose_lines(verbose, max_it) -> dict:
-    """The device loop's ``trace``/``show`` that print, after each block,
-    the lines :func:`alg2_iteration` prints under ``verbose`` (none
-    without it)."""
+    """The loops' ``trace``/``show`` that print, after each block of the
+    device loop (each iteration of a lockstep host loop), the lines
+    :func:`alg2_iteration` prints under ``verbose`` (none without it): the
+    carried criterion and count, a stopped pair's as they stay."""
     if not verbose:
         return {}
-    return dict(trace=lambda old, new: (new.crit, old.iteration + 1),
+    return dict(trace=lambda old, new: (new.crit, new.iteration),
                 show=lambda crit, it: print(f"{crit} ({it}/{max_it})"))
 
 
@@ -559,18 +564,15 @@ def alg2_loop_batched(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
 def run_lockstep(state, rho0, rhoT, max_it, verbose, ops, loop, key,
                  iterate):
     """A lockstep batch's ALG2 loop through ``lockstep.run``: on the device
-    loop for the sets whose stepA has no inner loop (their verbose lines
-    printed from each block's records), else on the host with the CG's
-    loop on the device under ``loop="device"``."""
+    loop for the sets whose stepA has no inner loop, else on the host with
+    the CG's loop on the device under ``loop="device"``; the verbose lines
+    printed from the carried state either way."""
     mode = loop_mode(loop, ops, rho0.device)
-    if mode == "device" and ops.alg2_on_device:
-        return lockstep.run(
-            state, lambda s, a, b: iterate(s, a, b, "device", False), max_it,
-            (rho0, rhoT), loop="device", key=key,
-            **_verbose_lines(verbose, max_it))
+    on_device = mode == "device" and ops.alg2_on_device
     return lockstep.run(
-        state, lambda s, a, b: iterate(s, a, b, mode, verbose), max_it,
-        (rho0, rhoT), loop="host")
+        state, lambda s, a, b: iterate(s, a, b, mode, False), max_it,
+        (rho0, rhoT), loop="device" if on_device else "host", key=key,
+        **_verbose_lines(verbose, max_it))
 
 
 solve_potential_batched = alg2_loop_batched

@@ -4,11 +4,13 @@ Counterpart of ``jax.vmap`` over the JAX package's solvers (its
 ``batch_mode="vmap"``).  Under vmap a ``lax.while_loop`` runs while any
 pair's condition holds, computes the body for every pair, and keeps a
 pair whose condition is false through a select on each carried field.
-The port's lockstep form is the same loop over (B, ...) tensors:
-:func:`select_pairs` freezes the pairs that have stopped, and the loop
-reads one "any pair still running" flag per block of K iterations on the
-device (``solvers/device_loop.py``) or, with ``loop="host"``, per
-iteration.
+The port's lockstep form is the same loop over (B, ...) tensors, with the
+same result bitwise.  On the device (``solvers/device_loop.py``, one "any
+pair still running" read per block of K iterations) the per-pair scalars
+are selected every iteration and each pair's fields are latched once, at
+its own stop, while the batch carries them on unmasked; with
+``loop="host"`` (one read an iteration) :func:`select_pairs` freezes the
+stopped pairs' every field.
 
 A per-pair scalar that the single-pair solvers keep as a Python float
 (the ADMM penalty ``r`` under ``auto_r``) is a :class:`PerPair`.
@@ -84,8 +86,9 @@ def run(state: NamedTuple, step: Callable, max_it: int, args=(), *,
     iterations, one flag read a block; a captured graph cached under
     ``key`` on cuda, with ``args`` its tensor inputs), ``"host"`` reads
     the flag every iteration; ``"auto"`` is ``"device"`` on cuda.  With
-    ``trace``/``show`` the device form prints what the step would have
-    printed (``device_loop.while_loop``).  Span ``lockstep.loop``."""
+    ``trace``/``show`` both print, for every iteration, ``show`` of the
+    records ``trace(old, new)`` makes of the carried state before and
+    after it (``device_loop.while_loop``).  Span ``lockstep.loop``."""
     def running(s, *a):
         return ~s.done & (s.iteration < max_it)
 
@@ -99,7 +102,9 @@ def run(state: NamedTuple, step: Callable, max_it: int, args=(), *,
             keep = running(state)
             if not bool(keep.any()):
                 return state
-            state = select_pairs(keep, step(state, *args), state)
+            old, state = state, select_pairs(keep, step(state, *args), state)
+            if trace is not None:
+                show(*(t.tolist() for t in trace(old, state)))
 
 
 def pair(batch: NamedTuple, i: int):

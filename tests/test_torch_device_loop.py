@@ -22,6 +22,9 @@ Tolerances against JAX, each that of the matching ``test_torch_*.py``:
     ``vmap``.
 """
 
+from collections import Counter
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -491,3 +494,243 @@ def test_fori_loop_runs_exactly_n(block, n):
         want = want * 1.5 + 1.0
     assert _same_bits(out.x, want)
     assert device_loop.stats.slots == n
+
+
+# ------------------------------------------------------------ the latch
+
+class _Toy(NamedTuple):
+    x: torch.Tensor           # a field: doubles every step, stop or not
+    crit: torch.Tensor
+    iteration: torch.Tensor
+    done: torch.Tensor
+
+
+# pair 0 is done at iteration 2, pair 1 runs to max_it (7, inside a block
+# for K = 3 and 8), pair 2 is done from the start, pair 3 stops on a NaN
+# criterion at iteration 4, after which its field is NaN
+_TOY_DONE_AT = [2, 100, 0, 4]
+_TOY_MAX_IT = 7
+
+
+def _toy_state(pairs=range(4)):
+    pairs = list(pairs)
+    n = len(pairs)
+    x = torch.arange(48, dtype=torch.float64).reshape(4, 3, 4)[pairs] / 7.0
+    done = torch.tensor([_TOY_DONE_AT[p] == 0 for p in pairs])
+    return _Toy(x, torch.full((n,), -1.0, dtype=torch.float64),
+                torch.zeros(n, dtype=torch.int64), done)
+
+
+def _toy_step(s, done_at, nan_at):
+    it = s.iteration + 1
+    crit = torch.where(it >= nan_at, float("nan"),
+                       1.0 / it.to(torch.float64))
+    lead = (-1,) + (1,) * (s.x.dim() - it.dim())
+    x = torch.where(torch.isnan(crit).view(*lead) if crit.dim() else
+                    torch.isnan(crit), float("nan"),
+                    2.0 * s.x + it.view(*lead) if it.dim() else
+                    2.0 * s.x + it)
+    return _Toy(x, crit, it, (it >= done_at) | torch.isnan(crit))
+
+
+def _toy_running(s, *a):
+    return ~s.done & (s.iteration < _TOY_MAX_IT)
+
+
+def _toy_args(pairs):
+    pairs = list(pairs)
+    return (torch.tensor([_TOY_DONE_AT[p] for p in pairs]),
+            torch.tensor([4 if p == 3 else 100 for p in pairs]))
+
+
+def _toy_host(state, args):
+    """The host loop: a select of every field, one read an iteration."""
+    while True:
+        keep = _toy_running(state)
+        if not bool(keep.any()):
+            return state
+        state = lockstep.select_pairs(keep, _toy_step(state, *args), state)
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_latched_fields_are_the_host_loops_pair_by_pair(block):
+    """Fields that keep changing after a pair's stop: the device loop
+    returns each pair's state at its own stop, bitwise the host loop's,
+    and the stopped pair's NaN field reaches no other pair."""
+    st, args = _toy_state(), _toy_args(range(4))
+    host = _toy_host(st, args)
+    dev = device_loop.while_loop(_toy_step, _toy_running, st, args)
+    assert dev.iteration.tolist() == [2, _TOY_MAX_IT, 0, 4]
+    assert _same_bits(tuple(host), tuple(dev))
+    assert _same_bits(dev.x[2], st.x[2])           # done at the start
+    assert torch.isnan(dev.x[3]).all() and torch.isnan(dev.crit[3])
+    assert torch.isfinite(dev.x[[0, 1, 2]]).all()
+    s = device_loop.stats
+    assert s.latch_slots == s.slots == s.replays * block
+    assert _TOY_MAX_IT <= s.slots < _TOY_MAX_IT + block
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("pair", [0, 1, 3])
+def test_latched_fields_of_one_pair_are_the_host_loops(block, pair):
+    """The same toy for one pair (a 0-d flag): its state at its stop,
+    bitwise the host loop's and the batch's pair."""
+    st = _toy_state([pair])
+    one = _Toy(*(t[0] for t in st))
+    args = tuple(t[0] for t in _toy_args([pair]))
+    host = one
+    while bool(_toy_running(host)):
+        host = _toy_step(host, *args)
+    dev = device_loop.while_loop(_toy_step, _toy_running, one, args)
+    assert _same_bits(tuple(host), tuple(dev))
+    batch = _toy_host(_toy_state(), _toy_args(range(4)))
+    assert _same_bits(tuple(dev), tuple(lockstep.pair(batch, pair)))
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+def test_loop_mask_plain_versions_are_the_wheres_they_replace(
+        block, monkeypatch):
+    """Every call of the two plain versions in a toy batch's blocks: the
+    scalars' select is ``torch.where`` on the flag, the latch is
+    ``torch.where`` on ``run & ~nxt``, pair by pair."""
+    from ofot_tpu_torch.ops.kernels import loop_mask
+    calls = Counter()
+    select, latch = loop_mask.select_scalars, loop_mask.latch_fields
+
+    def checked_select(run, new, old):
+        out = select(run, new, old)
+        assert len(out) == len(new) == 3
+        for o, n, p in zip(out, new, old):
+            assert _same_bits(o, torch.where(run, n, p))
+        calls["select"] += 1
+        return out
+
+    def checked_latch(run, nxt, fields, held):
+        out = latch(run, nxt, fields, held)
+        fire = (run & ~nxt).view(-1, 1, 1)
+        assert len(out) == len(fields) == 1
+        assert _same_bits(out[0], torch.where(fire, fields[0], held[0]))
+        calls["latch"] += 1
+        return out
+
+    monkeypatch.setattr(loop_mask, "select_scalars", checked_select)
+    monkeypatch.setattr(loop_mask, "latch_fields", checked_latch)
+    st, args = _toy_state(), _toy_args(range(4))
+    dev = device_loop.while_loop(_toy_step, _toy_running, st, args)
+    assert _same_bits(tuple(dev), tuple(_toy_host(st, args)))
+    assert calls["select"] == calls["latch"] == device_loop.stats.slots
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int64, torch.bool])
+@pytest.mark.parametrize("pairs", [None, 1, 5])
+def test_select_scalars_plain_version_is_the_old_select(dtype, pairs):
+    """The plain version of ``select_scalars`` on each carried dtype, for
+    one pair (0-d) and for batches: the ``torch.where`` the device loop's
+    select ran on every field."""
+    from ofot_tpu_torch.ops.kernels import loop_mask
+    g = torch.Generator().manual_seed(3)
+    shape = () if pairs is None else (pairs,)
+    run = torch.rand(shape, generator=g) < 0.5
+    new, old = (((torch.rand(shape, generator=g) * 100).to(dtype),
+                 (torch.rand(shape, generator=g) * 100).to(dtype))
+                for _ in range(2))
+    out = loop_mask.select_scalars_reference(run, new, old)
+    for o, n, p in zip(out, new, old):
+        assert _same_bits(o, torch.where(run, n, p))
+
+
+@pytest.mark.parametrize("pairs", [None, 1, 4])
+def test_latch_fields_plain_version_is_a_where_on_the_stopping_pairs(pairs):
+    from ofot_tpu_torch.ops.kernels import loop_mask
+    g = torch.Generator().manual_seed(5)
+    lead = () if pairs is None else (pairs,)
+    for run_v, nxt_v in ((True, False), (True, True), (False, False)):
+        run = torch.full(lead, run_v)
+        nxt = torch.full(lead, nxt_v)
+        if pairs == 4:
+            run = torch.tensor([True, True, False, True])
+            nxt = torch.tensor([False, True, False, False])
+        fields = (torch.rand(lead + (3, 2, 5), generator=g),
+                  torch.rand(lead + (7,), generator=g, dtype=torch.float64))
+        held = tuple(torch.rand(f.shape, generator=g, dtype=f.dtype)
+                     for f in fields)
+        out = loop_mask.latch_fields_reference(run, nxt, fields, held)
+        fire = run & ~nxt
+        for o, f, h in zip(out, fields, held):
+            want = torch.where(fire.view(lead + (1,) * (f.dim() - len(lead))),
+                               f, h)
+            assert _same_bits(o, want)
+            for b in range(pairs or 1):
+                i = () if pairs is None else (b,)
+                assert _same_bits(o[i], f[i] if bool(fire[i]) else h[i])
+
+
+def _latch_solves():
+    a, b = _pair()
+    fa, fb = _batch()
+    kw = dict(FOTO_KW, ops=foto.stepA_ops("dct"), loop="device")
+    return {
+        "foto": lambda: foto.alg2_loop(a, b, NT, **kw),
+        "wfr": lambda: wfr.alg2_loop(a, b, NT, delta=2.5, **kw),
+        "lockstep": lambda: foto.alg2_loop_batched(fa, fb, NT, **kw),
+        "gn": lambda: gn.solve_fields(a, b, loop="device"),
+    }
+
+
+@pytest.mark.parametrize("block", BLOCKS, indirect=True)
+@pytest.mark.parametrize("solve", ["foto", "wfr", "lockstep", "gn"])
+def test_every_block_of_a_solve_goes_through_the_latch(block, solve):
+    device_loop.reset_stats()
+    _latch_solves()[solve]()
+    s = device_loop.stats
+    assert s.slots > 0 and s.latch_slots == s.slots
+
+
+def test_a_state_smaller_than_its_flag_is_refused():
+    st = _toy_state()
+    bad = st._replace(crit=torch.tensor(0.0, dtype=torch.float64))
+    with pytest.raises(ValueError, match="fewer elements"):
+        device_loop.while_loop(_toy_step, _toy_running, bad,
+                               _toy_args(range(4)))
+
+
+@pytest.mark.parametrize("solver", ["dct", "dct-refined", "dct-fused",
+                                    "pallas", "cg", "cg-pallas"])
+@pytest.mark.parametrize("lockstep_form", [False, True])
+@pytest.mark.parametrize("algo", ["foto", "wfr"])
+def test_every_sets_fields_are_contiguous_for_the_latch(solver,
+                                                        lockstep_form, algo):
+    """The card's latch copies a stopped pair's part of each field as one
+    contiguous segment, and its wrapper refuses any other layout: one
+    ALG2 iteration of every set, single and lockstep, FOTO and WFR,
+    returns contiguous fields."""
+    a, b = _batch() if lockstep_form else _pair()
+    ops = foto.stepA_ops(solver)
+    if lockstep_form:
+        ops = foto.lockstep_ops(ops)
+    mod = foto if algo == "foto" else wfr
+    kw = dict(delta=2.5) if algo == "wfr" else {}
+    st = mod.alg2_iteration(mod.init_state(a, b, NT), a, b, r=1.0,
+                            reg_epsilon=1e-2, convergence_tol=0.01,
+                            admm_alpha=1.7, ops=ops, loop="host", **kw)
+    assert all(t.is_contiguous() for t in (st.mu, st.q, st.phi))
+
+
+def test_loop_mask_source_entry_points_and_counters():
+    """The C entries the wrapper binds, the kernel names the card's
+    profiler test looks for (none that the benchmark's trace readers match
+    for #1), and the launch counters in ``KERNELS``."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import _build
+    src = (_build.SRC_DIR / "loop_mask.cu").read_text()
+    for name in ("ofot_loop_select_scalars", "ofot_loop_latch_fields"):
+        assert f"int {name}(" in src
+    for kernel in ("loop_select_scalars_kernel", "loop_latch_fields_kernel"):
+        assert kernel in src
+    assert "fused_pointwise_kernel" not in src
+    assert "reduce_partials_kernel" not in src
+    assert kernels.KERNELS["select_scalars"] == ("loop_mask",
+                                                 "select_launches")
+    assert kernels.KERNELS["latch_fields"] == ("loop_mask",
+                                               "latch_launches")

@@ -41,7 +41,11 @@ against its host loop, a host read inside a captured body raises, and
 wherever a test counted one launch an iteration it holds the replay
 relation instead: launches = warm-up launches + replayed launches,
 replayed launches = the slots of the replays, and iterations <= slots <=
-iterations + (K - 1) a loop.
+iterations + (K - 1) a loop.  The device loop's own two kernels (the
+per-pair scalars' select and the latch of a stopped pair's fields) are
+bitwise their plain versions at the loops' shapes, launch once each an
+iteration slot of every while loop, and leave no ``where`` kernel in a
+replayed FOTO block.
 """
 
 import functools
@@ -65,10 +69,30 @@ def _reset_counts():
     device_loop.reset_stats()
 
 
+# the device loop's own kernels (ops/kernels/loop_mask.py): one launch
+# each an iteration slot of every while loop's block
+LOOP_MASK = ("select_scalars", "latch_fields")
+
+
+def _assert_loop_mask_relation(launches):
+    """The device loop's two mask kernels: launches = warm-up launches +
+    replayed launches, replayed launches = the slots of the replays that
+    launched them, and the latch's = ``stats.latch_slots``."""
+    from ofot_tpu_torch.solvers import device_loop
+    s = device_loop.stats
+    for kernel in LOOP_MASK:
+        replayed = s.graph_launches.get(kernel, 0)
+        assert launches[kernel] == s.eager_launches.get(kernel, 0) \
+            + replayed, kernel
+        assert replayed == s.kernel_slots.get(kernel, 0), kernel
+        assert s.eager_launches.get(kernel, 0) <= s.captures, kernel
+    assert s.graph_launches.get("latch_fields", 0) == s.latch_slots
+
+
 def _assert_launch_relation(launches, expect):
     """The device loop's launch relation for each kernel of ``expect``
-    (kernel -> the iterations that launch it once each), and no launch of
-    any other kernel."""
+    (kernel -> the iterations that launch it once each) and for its own
+    mask kernels, and no launch of any other kernel."""
     from ofot_tpu_torch.solvers import device_loop
     s = device_loop.stats
     for kernel, iterations in expect.items():
@@ -78,7 +102,9 @@ def _assert_launch_relation(launches, expect):
         assert replayed == s.kernel_slots.get(kernel, 0), kernel
         assert iterations <= replayed <= iterations + s.kernel_spare.get(
             kernel, 0), kernel
-    assert sum(launches.values()) == sum(launches[k] for k in expect)
+    _assert_loop_mask_relation(launches)
+    assert sum(launches.values()) == sum(
+        launches[k] for k in {*expect, *LOOP_MASK})
 
 
 def _pallas_launches(foto_iterations, wfr_iterations=0):
@@ -854,7 +880,7 @@ def test_foto_pallas_solve_keeps_its_bits_with_the_stencil_kernels_on_card(
 def test_stencil_kernels_launch_once_an_alg2_iteration_on_card(cuda_device):
     """On the host loop each stencil kernel launches exactly once an ALG2
     iteration of the ``pallas`` set (FOTO; WFR the gradient only), and GN
-    launches none."""
+    launches none (its CG's device loop only the loop's mask kernels)."""
     from ofot_tpu_torch.ops import kernels
     from ofot_tpu_torch.solvers import foto, gn, wfr
     a, b = (torch.as_tensor(x[0], device=cuda_device)
@@ -871,7 +897,7 @@ def test_stencil_kernels_launch_once_an_alg2_iteration_on_card(cuda_device):
         {k: 0 for k in kernels.KERNELS}, **_pallas_launches(0, st.iteration))
     _reset_counts()
     gn.solve_fields(a, b)
-    assert set(kernels.launch_counts().values()) == {0}
+    _assert_launch_relation(kernels.launch_counts(), {})
 
 
 @pytest.mark.cuda
@@ -998,6 +1024,9 @@ def test_device_loop_launch_relation_on_card(cuda_device, solver, kernel):
             + s.replays * K
         assert s.eager_launches.get(kernel, 0) == (1 if cold else 0)
         assert st.iteration <= s.replays * K < st.iteration + K
+        for mask in LOOP_MASK:
+            assert launches[mask] == (1 if cold else 0) + s.replays * K
+        assert s.latch_slots == s.slots == s.replays * K
         _assert_launch_relation(
             launches, _pallas_launches(st.iteration) if solver == "pallas"
             else {kernel: st.iteration})
@@ -1019,9 +1048,9 @@ def _graft_step_f64(device):
 
 @pytest.mark.cuda
 def test_graft_entry_step_on_card(cuda_device):
-    """entry()'s step (the default cg set, no kernel) on the card: float32
-    phi (8, 32, 40) and finite; at float64 with CG run to cg_rtol 1e-12
-    (at the default 1e-6 one-ulp input noise moves phi by ~5e-9 of
+    """entry()'s step (the default cg set, no solver kernel) on the card:
+    float32 phi (8, 32, 40) and finite; at float64 with CG run to cg_rtol
+    1e-12 (at the default 1e-6 one-ulp input noise moves phi by ~5e-9 of
     max|phi|), the CPU's phi within 1e-10 of max|phi| with the same CG
     steps (the bound tests/test_torch_graft_entry.py holds the CPU to
     against JAX)."""
@@ -1033,8 +1062,140 @@ def test_graft_entry_step_on_card(cuda_device):
     phi, crit = fn(*args)
     assert phi.shape == (8, 32, 40) and bool(torch.isfinite(phi).all())
     assert np.isfinite(float(crit))
-    assert not any(kernels.launch_counts().values())
+    _assert_launch_relation(kernels.launch_counts(), {})
     card, cpu = _graft_step_f64("cuda"), _graft_step_f64("cpu")
     scale = float(cpu[0].abs().max())
     assert float((card[0] - cpu[0]).abs().max()) <= 1e-10 * scale
     assert card[1] == cpu[1] == 241
+
+
+# ------------------------------------------------------------ loop mask
+
+def _loop_state(device, lead, fields, scalars, seed):
+    """Random fields of the given shapes (float32) and per-pair scalars
+    of the given dtypes and ``lead`` shape, as the loops carry them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    fs = [torch.randn(sh, generator=g).to(device) for sh in fields]
+    sc = [(torch.rand(lead, generator=g) * 100).to(dt).to(device)
+          for dt in scalars]
+    return fs, sc
+
+
+_FOTO_SCALARS = (torch.float32, torch.float32, torch.int64, torch.int64,
+                 torch.bool)
+# name -> (the pairs' shape, the fields' shapes, the scalars' dtypes)
+_LOOP_SHAPES = {
+    "foto-320": ((), [(3, 16, 240, 320), (3, 16, 240, 320), (16, 240, 320)],
+                 _FOTO_SCALARS),
+    "foto-640": ((), [(3, 16, 480, 640), (3, 16, 480, 640), (16, 480, 640)],
+                 _FOTO_SCALARS),
+    "lockstep8-320": ((8,), [(8, 3, 16, 240, 320), (8, 3, 16, 240, 320),
+                             (8, 16, 240, 320)], _FOTO_SCALARS),
+    "wfr-320": ((), [(4, 16, 240, 320), (4, 16, 240, 320), (16, 240, 320)],
+                _FOTO_SCALARS),
+    "gn-320": ((), [(2, 240, 320)] * 3,
+               (torch.float32, torch.float32, torch.int64)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(_LOOP_SHAPES))
+def test_loop_mask_kernels_match_plain_versions_on_card(cuda_device, shape):
+    """Both kernels bitwise their plain versions at the loops' shapes, on
+    iterations where no pair stops, where one or every running pair
+    stops, and with pairs stopped before; one launch each a call."""
+    from ofot_tpu_torch.ops.kernels import loop_mask as lm
+    lead, fields, scalars = _LOOP_SHAPES[shape]
+    fs, new = _loop_state(cuda_device, lead, fields, scalars, 11)
+    held, old = _loop_state(cuda_device, lead, fields, scalars, 12)
+    B = lead[0] if lead else 1
+    cases = [(True, True), (True, False), (False, False)]
+    if lead:
+        cases = [(torch.ones(B, dtype=torch.bool),
+                  torch.ones(B, dtype=torch.bool)),
+                 (torch.ones(B, dtype=torch.bool),
+                  torch.arange(B) != 3),
+                 (torch.arange(B) % 2 == 0, torch.arange(B) % 4 == 0),
+                 (torch.zeros(B, dtype=torch.bool),
+                  torch.zeros(B, dtype=torch.bool))]
+    for run, nxt in cases:
+        run, nxt = (torch.as_tensor(t, device=cuda_device)
+                    for t in (run, nxt))
+        sel0, lat0 = lm.select_launches, lm.latch_launches
+        got = lm.select_scalars(run, new, old)
+        want = lm.select_scalars_reference(run, new, old)
+        assert all(map(_same_bits, got, want))
+        mine = tuple(h.clone() for h in held)
+        want = lm.latch_fields_reference(run, nxt, fs, mine)
+        got = lm.latch_fields(run, nxt, fs, mine)
+        assert all(g is m for g, m in zip(got, mine))      # in place
+        assert all(map(_same_bits, got, want))
+        assert (lm.select_launches - sel0, lm.latch_launches - lat0) \
+            == (1, 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_loop_mask_kernels_take_unaligned_fields_on_card(cuda_device):
+    """A field whose pair segments are not 16-byte multiples, or that
+    starts off a 16-byte boundary, copies by words: bitwise as well."""
+    from ofot_tpu_torch.ops.kernels import loop_mask as lm
+    base = torch.randn(1 + 4 * 3 * 5 * 7, device=cuda_device)
+    fields = [base[1:].view(4, 3, 5, 7),
+              torch.randn(4, 3, 5, 7, device=cuda_device)]
+    held = [torch.randn(4, 3, 5, 7, device=cuda_device) for _ in fields]
+    run = torch.tensor([True, True, False, True], device=cuda_device)
+    nxt = torch.tensor([False, True, False, False], device=cuda_device)
+    want = lm.latch_fields_reference(run, nxt, fields, held)
+    got = lm.latch_fields(run, nxt, fields, held)
+    assert all(map(_same_bits, got, want))
+
+
+@pytest.mark.cuda
+def test_loop_mask_kernels_reject_bad_operands_on_card(cuda_device):
+    from ofot_tpu_torch.ops.kernels import loop_mask as lm
+    run = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    f = torch.zeros(2, 3, 4, device=cuda_device)
+    s = torch.zeros(2, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.latch_fields(run, run, [f.transpose(1, 2)], [f.transpose(1, 2)])
+    with pytest.raises(TypeError):
+        lm.latch_fields(run, run, [f], [f.double()])
+    with pytest.raises(ValueError, match="no field"):
+        lm.latch_fields(run, run, [s], [s.clone()])
+    with pytest.raises(ValueError, match="at most"):
+        lm.select_scalars(run, [s] * 17, [s] * 17)
+    with pytest.raises(ValueError, match="elements"):
+        lm.select_scalars(run, [f], [f])
+    with pytest.raises(TypeError):
+        lm.select_scalars(run.float(), [s], [s])
+    with pytest.raises(ValueError):
+        lm.select_scalars(run, [s.cpu()], [s.cpu()])
+
+
+@pytest.mark.cuda
+def test_replayed_foto_block_launches_no_where_on_card(cuda_device):
+    """A replayed FOTO ``pallas`` block: no ``where`` kernel (the select
+    of every field is gone), the two mask kernels once an iteration."""
+    from torch.profiler import ProfilerActivity, profile
+    from ofot_tpu_torch.solvers import device_loop, foto
+    a, b = (torch.as_tensor(x[0], device=cuda_device)
+            for x in _blob_pairs(1, 240, 320))
+    kw = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=40,
+              admm_alpha=1.7, loop="device", ops=foto.stepA_ops("pallas"))
+    foto.alg2_loop(a, b, 16, **kw)              # captures the graph
+    torch.cuda.synchronize()
+    _reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st = foto.alg2_loop(a, b, 16, **kw)
+        torch.cuda.synchronize()
+    assert device_loop.stats.captures == 0 and device_loop.stats.replays
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("fused_pointwise_kernel" in n for n in names), names[:20]
+    assert not [n for n in names if "where" in n]
+    latch = sum("loop_latch_fields_kernel" in n for n in names)
+    select = sum("loop_select_scalars_kernel" in n for n in names)
+    slots = device_loop.stats.slots
+    assert st.iteration <= slots and latch <= slots and select <= slots
+    assert latch > 0 and select > 0

@@ -67,6 +67,11 @@ def _lockstep():
         batch_mode="vmap", device="cpu")
 
 
+def _builds(rec):
+    """The ``dct.builds`` events of a record."""
+    return [e for e in rec.events if e.name == "dct.builds"]
+
+
 def _names(rec):
     return Counter(s.name for s in rec.spans)
 
@@ -140,6 +145,26 @@ def test_launch_spans_equal_replays_and_flag_reads_one_more(solve):
     assert names["device_loop.flag_read"] == replays + 1
 
 
+@pytest.mark.parametrize("solve", [_foto, _gn, _wfr],
+                         ids=["foto", "gn", "wfr"])
+@pytest.mark.parametrize("loop", ["device", "host"])
+def test_latch_slots_counted_once_a_replay(solve, loop):
+    """``device_loop.latch_slots``: K a replay of a block whose fields go
+    through the latch, one event a replay; the host loop counts none."""
+    trace.enable(True)
+    before = trace.counts().get("device_loop.latch_slots", 0)
+    s0 = device_loop.stats.latch_slots, device_loop.stats.replays
+    solve(loop=loop)
+    events = [e for e in trace.spans().events
+              if e.name == "device_loop.latch_slots"]
+    slots = device_loop.stats.latch_slots - s0[0]
+    assert trace.counts().get("device_loop.latch_slots", 0) - before \
+        == slots == sum(e.n for e in events)
+    assert len(events) == device_loop.stats.replays - s0[1]
+    assert all(e.n == device_loop.BLOCK for e in events)
+    assert (slots > 0) == (loop == "device")
+
+
 class _Count(NamedTuple):
     x: torch.Tensor
 
@@ -168,9 +193,8 @@ def test_gn_records_setup_and_cg_loop_and_one_dct_build(loop):
     assert setup.parent == cg_loop.parent == root.index
     assert setup.end_ns <= cg_loop.start_ns
     assert trace.counts()["dct.builds"] == builds + 1
-    event, = rec.events
-    assert (event.name, event.n, event.request) == ("dct.builds", 1,
-                                                    root.index)
+    event, = _builds(rec)
+    assert (event.n, event.request) == (1, root.index)
     assert setup.start_ns <= event.t_ns <= setup.end_ns
     assert res.cg.iterations > 0
 
@@ -183,7 +207,7 @@ def test_a_reused_ops_set_builds_its_dct_once():
     assert trace.counts()["dct.builds"] == builds + 1
     _foto(ops)
     assert trace.counts()["dct.builds"] == builds + 1
-    assert [e.n for e in trace.spans().events] == [1]
+    assert [e.n for e in _builds(trace.spans())] == [1]
 
 
 def test_lockstep_batch_is_a_root_over_its_loop_and_extraction():
