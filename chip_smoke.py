@@ -2658,7 +2658,7 @@ def lockstep_other_sets():
     out["dct-fused"] = dict(iterations=its, launches=launches, seconds=s)
 
     steps = []
-    real = foto._Lockstep.cg_solve
+    real = foto.Lockstep.cg_solve
 
     def counted(*args, **kwargs):
         res = real(*args, **kwargs)
@@ -2666,13 +2666,13 @@ def lockstep_other_sets():
         steps.append(int(res.iterations.max()))
         return res
 
-    foto._Lockstep.cg_solve = staticmethod(counted)
+    foto.Lockstep.cg_solve = staticmethod(counted)
     try:
         kw = _batch_kw("foto", stepA_solver="cg-pallas",
                        max_it=LOCKSTEP_CG_PALLAS_MAX_IT)
         u, v, m, d, s, launches = _timed_batch("foto", a, b, kw, "vmap")
     finally:
-        foto._Lockstep.cg_solve = staticmethod(real)
+        foto.Lockstep.cg_solve = staticmethod(real)
     its = check("lockstep cg-pallas", u, v, m, d, a, b, None)
     check_launches("lockstep cg-pallas", launches,
                    {"cg_operator_blocked": sum(steps)},

@@ -179,15 +179,14 @@ class Bench:
         def step(s, p, q):
             return module.alg2_iteration(s, p, q, r=1.0, **kw)
 
-        if self.loop == "device" and ops.alg2_on_device:
+        if self.loop == "device" and ops.spectral:
             zero = torch.zeros((), dtype=torch.int64, device=self.device)
             if not isinstance(state.iteration, torch.Tensor):
                 state = state._replace(iteration=zero, cg_iterations=zero)
             return device_loop.fori_loop(
                 step, state, iters, (rho0, rhoT), key=(
-                    "bench", module.__name__, type(ops),
-                    getattr(ops, "refine", None), tuple(sorted(kw.items(),
-                                                               key=str))))
+                    "bench", module.__name__, ops.key,
+                    tuple(sorted(kw.items(), key=str))))
         for _ in range(iters):
             state = step(state, rho0, rhoT)
         return state

@@ -25,7 +25,7 @@ import torch.distributed as dist
 from ofot_tpu_torch.ops import kernels
 from ofot_tpu_torch.parallel import foto_sharded, gn_sharded, gspmd, halo
 from ofot_tpu_torch.parallel import sweep, wfr_sharded
-from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.parallel.halo import Tiled
 from ofot_tpu_torch.parallel.mesh import make_mesh
 from ofot_tpu_torch.solvers import foto
 
@@ -47,7 +47,7 @@ def state_arrays(st) -> dict:
 
 def stencils(mesh, phi, mu, x):
     """The halo stencils and the all-reduced sum, gathered whole."""
-    sops = ShardedOps(mesh)
+    sops = Tiled(mesh)
     t = mesh.tile
     return {"laplacian_st": _np(mesh.gather(sops.laplacian_st(t(phi)))),
             "grad_st": _np(mesh.gather(sops.grad_st(t(phi)))),

@@ -3,8 +3,8 @@
 Counterpart of ``ofot_tpu.parallel.foto_sharded``.  Every rank of a
 (y, x) mesh (``parallel/mesh.py``) runs the port's own
 ``foto.alg2_loop`` on its (Nt, Ny/py, Nx/px) tile of every field, with
-``ops=ShardedOps(mesh)`` (``parallel/halo.py``): stencil halos move between
-neighbouring ranks, and the CG dot products, the criterion sums and
+the ``cg`` set on the tiled form (``halo.Tiled``): stencil halos move
+between neighbouring ranks, and the CG dot products, the criterion sums and
 ``auto_r``'s peak density are all-reduced.  Every rank therefore reaches
 the same stop decision, from the same all-reduced values, and no rank
 decides alone.  JAX runs the same loop inside ``shard_map``; here it is

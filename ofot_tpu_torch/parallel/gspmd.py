@@ -5,7 +5,8 @@ JAX places the frames with a (y, x)-tiled sharding and jits the ordinary
 solve, and XLA's SPMD partitioner turns the stencils into halo exchanges
 and the reductions into all-reduces.  torch has no SPMD partitioner, so
 here every rank of a (y, x) mesh runs the ordinary ALG2 loop on its tile
-with the ops set given to the solve made tiled (:func:`sharded_ops`):
+with the ops set given to the solve built on the tiled form
+(:func:`sharded_ops`, ``halo.Tiled``, which decides all that follows):
 
   * the stencils, the pointwise passes and the reductions run tiled
     (``parallel/halo.py``), so every rank reaches the same stop decision;
@@ -18,7 +19,8 @@ with the ops set given to the solve made tiled (:func:`sharded_ops`):
     "gather route");
   * ``pallas``'s fused stepB + stepC + criterion pass (kernel #1) runs
     tile-local on each rank's tile, with its ``num``/``den`` sums
-    all-reduced;
+    all-reduced; its stencil kernels (S1, S2) give way to the halo
+    stencils;
   * ``cg-pallas`` keeps its CG stepA as the ``cg`` set does, and its SpMV
     is the tile form of kernel #4 (``cg_operator_tile``): each CG step
     brings in the four lines next to the rank's tile in one exchange round
@@ -34,16 +36,12 @@ than one rank shares ``cuda:0`` over gloo, staging through host memory
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from ofot_tpu_torch.ops.kernels.cg_operator import cg_operator_tile
 from ofot_tpu_torch.parallel import gn_sharded
-from ofot_tpu_torch.parallel.halo import ShardedOps, edge_lines
+from ofot_tpu_torch.parallel.halo import Tiled
 from ofot_tpu_torch.parallel.mesh import Mesh, shard_pair
 from ofot_tpu_torch.solvers import foto, gn, wfr
-from ofot_tpu_torch.solvers.lockstep import kernel_r
 
 
 def gather_state(state: foto.FotoState, mesh: Mesh) -> foto.FotoState:
@@ -54,61 +52,13 @@ def gather_state(state: foto.FotoState, mesh: Mesh) -> foto.FotoState:
                           phi=mesh.gather(state.phi))
 
 
-class _GatheredStepA:
-    """Mixin: a spectral stepA solved whole on the all-gathered F, this
-    rank keeping its tile."""
-
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
-                    loop="host"):
-        phi, n = super().stepA_solve(self.mesh.gather(F), r, reg_epsilon,
-                                     cg_rtol, cg_maxiter, loop=loop)
-        return self.mesh.tile(phi), n
-
-
-@functools.cache
-def _gathered_class(cls):
-    attrs = {}
-    fused = getattr(cls, "fused_pointwise", None)
-    if fused is not None:
-        def fused_pointwise(self, grad_phi, mu, r, alpha=None, q_prev=None):
-            """The fused pass on this rank's tile, its criterion sums
-            all-reduced over the plane."""
-            q, mu, num, den = fused(grad_phi, mu, r, alpha, q_prev)
-            return (q, mu, self.mesh.all_reduce(num),
-                    self.mesh.all_reduce(den))
-        attrs["fused_pointwise"] = fused_pointwise
-    return type(f"Gathered{cls.__name__}", (_GatheredStepA, ShardedOps, cls),
-                attrs)
-
-
-class TiledPallasCGOps(ShardedOps):
-    """The tiled ``cg-pallas`` set: the tiled ``cg`` set (halo stencils,
-    all-reduced dots, a host-loop CG) whose SpMV is the tile form of
-    kernel #4, one exchange round and one launch a CG step."""
-
-    def cg_operator(self, r, reg_epsilon):
-        r = kernel_r(r)
-        return lambda phi: cg_operator_tile(phi, edge_lines(phi, self.mesh),
-                                            r, reg_epsilon)
-
-
 def sharded_ops(ops, mesh: Mesh):
-    """The tiled form of the (single-pair) ops set ``ops`` on ``mesh``
-    (its own state carried over)."""
-    if isinstance(ops, foto._Lockstep) or isinstance(ops, ShardedOps):
-        raise ValueError(f"{type(ops).__name__} is not a single-pair ops "
-                         "set")
-    if type(ops) is foto._DefaultOps:
-        return ShardedOps(mesh)
-    if type(ops) is foto.PallasCGOps:
-        return TiledPallasCGOps(mesh)
-    if not isinstance(ops, foto.DCTOps):
-        raise ValueError(f"no tiled form of {type(ops).__name__}")
-    tiled = object.__new__(_gathered_class(type(ops)))
-    tiled.__dict__.update(vars(ops))
-    tiled._plans = {}
-    tiled.mesh = mesh
-    return tiled
+    """The tiled form of the single-pair ops set ``ops`` on ``mesh`` (its
+    own settings carried over, with plans of its own)."""
+    if ops.form.name != foto.SINGLE.name:
+        raise ValueError(f"{type(ops).__name__} on the {ops.form.name} "
+                         "form is not a single-pair ops set")
+    return ops.with_form(Tiled(mesh))
 
 
 def _run_tiled(loop, rho0, rhoT, Nt: int, mesh: Mesh, ops, **kw):

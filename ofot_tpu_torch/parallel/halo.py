@@ -18,22 +18,28 @@ split and uses the port's ``stencils._shifted``, as JAX's does.
 Requires local tile extents >= 2 along split axes (the boundary formulas
 touch the first two / last two lines, which are then tile-local).
 
-``ShardedOps`` is the operator set of a tiled ALG2 loop: halo stencils,
-sums and maxima all-reduced over the plane (so every rank reaches the same
-stop decision), the tile-local projection, and stepA's CG with those
-stencils and all-reduced dot products.  :func:`edge_lines` brings in the
-four lines next to a tile in one exchange round, for the tile form of the
-stepA operator kernel (the tiled ``cg-pallas`` set, ``parallel/gspmd.py``).
+:class:`Tiled` is the form of every ops set on one rank's tile (a form
+supplies what is the same across sets, ``solvers/foto.py``): halo
+stencils, sums and maxima all-reduced over the plane (so every rank
+reaches the same stop decision), the tile-local projection, stepA's CG
+with those stencils and all-reduced dot products, and a spectral stepA
+solved whole on the gathered right-hand side.  Of a set's kernels it runs
+no stencil kernel, the fused pass (#1) tile-local with its sums
+all-reduced, and the tile form of #4, whose four neighbouring lines
+:func:`edge_lines` brings in one exchange round.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ofot_tpu_torch.ops import stencils
+from ofot_tpu_torch.ops.kernels.cg_operator import cg_operator_tile
 from ofot_tpu_torch.ops.stencils import _index, _set
 from ofot_tpu_torch.parallel.mesh import Mesh
-from ofot_tpu_torch.solvers.foto import _DefaultOps
+from ofot_tpu_torch.solvers.foto import Kernels, Single
 
 
 def _halo_shifts(f, offsets, axis: int, mesh: Mesh, name: str):
@@ -170,18 +176,18 @@ def grad_forward_adjoint_halo(f, h, bc, axis, mesh: Mesh, name: str):
     return (_halo_shift(f, -1, axis, mesh, name) - f) / h
 
 
-class ShardedOps(_DefaultOps):
-    """Space-time operator set of one rank's (y, x) tile.
-
-    Drop-in replacement for the port's plain ops set (``foto._DefaultOps``:
-    component axis 0, host-loop CG): halo stencils, ``sum`` and ``max``
-    all-reduced over the plane (``max`` gives ``auto_r`` the global peak
-    density, as JAX's ``pmax`` does), the tile-local projection, and the
-    inherited CG stepA, whose operator then runs the halo Laplacian and
-    whose dot products are the all-reduced sum.  Hand it to
-    ``foto.alg2_loop`` or ``wfr.alg2_loop`` on tiles
-    (``parallel/foto_sharded.py``).  Its loops stay host loops
-    (``host_only``): the collectives cannot be captured in a graph."""
+class Tiled(Single):
+    """The form of an ops set on one rank's (y, x) tile, in place of the
+    single-pair form (component axis 0): halo stencils, ``sum`` and
+    ``max`` all-reduced over the plane (``max`` gives ``auto_r`` the
+    global peak density, as JAX's ``pmax`` does), the tile-local
+    projection, and the set's CG stepA, whose operator then runs the halo
+    Laplacian and whose dot products are the all-reduced sum.  A spectral
+    stepA is solved whole on the all-gathered F, this rank keeping its
+    tile.  ``foto.alg2_loop`` or ``wfr.alg2_loop`` run it on tiles
+    (``parallel/gspmd.py``).  Its loops stay host loops (``host_only``):
+    the collectives cannot be captured in a graph."""
+    name = "tiled"
     host_only = True
 
     def __init__(self, mesh: Mesh):
@@ -198,10 +204,6 @@ class ShardedOps(_DefaultOps):
                 + grad_central_weird_halo(mu[1], dx, bc, -1, self.mesh, "x")
                 + grad_central_weird_halo(mu[2], dy, bc, -2, self.mesh, "y"))
 
-    # the plain right-hand side on the halo div_st: in a tiled kernel set's
-    # class this comes before the set's own whole-field kernel
-    stepA_rhs = _DefaultOps.stepA_rhs
-
     def laplacian_st(self, phi, dt=1.0, dx=1.0, dy=1.0, bc="N"):
         return (stencils.lap1d(phi, dt, bc, axis=-3)
                 + lap1d_halo(phi, dx, bc, -1, self.mesh, "x")
@@ -215,3 +217,27 @@ class ShardedOps(_DefaultOps):
         each rank a different ``auto_r`` penalty."""
         return self.mesh.all_reduce(torch.max(x),
                                     op=torch.distributed.ReduceOp.MAX)
+
+    def hooks(self, kernels: Kernels) -> Kernels:
+        """No stencil kernel (they would need halos): #1 on the tile with
+        its criterion sums all-reduced, #4 in its tile form."""
+        fused, spmv = kernels.fused_pointwise, kernels.cg_operator
+        return Kernels(
+            fused_pointwise=(None if fused is None else
+                             functools.partial(self._fused, fused[0])),
+            cg_operator=None if spmv is None else self._cg_operator_tile)
+
+    def _fused(self, fused, grad_phi, mu, r, alpha=None, q_prev=None):
+        q, mu, num, den = fused(grad_phi, mu, r, alpha, q_prev)
+        return q, mu, self.mesh.all_reduce(num), self.mesh.all_reduce(den)
+
+    def _cg_operator_tile(self, phi, r, reg_epsilon):
+        """#4's tile form: one exchange round and one launch a CG step."""
+        return cg_operator_tile(phi, edge_lines(phi, self.mesh), r,
+                                reg_epsilon)
+
+    def stepA(self, ops, F, *args, **kw):
+        if not ops.spectral:
+            return ops.solve(F, *args, **kw)
+        phi, n = ops.solve(self.mesh.gather(F), *args, **kw)
+        return self.mesh.tile(phi), n

@@ -1,12 +1,12 @@
 """WFR (unbalanced) ALG2 on spatial tiles, one tile per rank.
 
 Counterpart of ``ofot_tpu.parallel.wfr_sharded``: ``parallel/gspmd.py``'s
-tiled solve running the port's ``wfr.alg2_loop`` with the ``cg`` set made
-tiled (``ShardedOps(mesh)``), as ``parallel/foto_sharded.py`` does.  The 4-component (rho, m1, m2, sigma) fields
-tile like the balanced ones (the source channel is pointwise, so it adds
-no halo traffic); halos move between neighbouring ranks and the CG and
-criterion reductions are all-reduced, so every rank reaches the same stop
-decision.  On one card, ranks share ``cuda:0`` over gloo through host
+tiled solve running the port's ``wfr.alg2_loop`` with the ``cg`` set on
+the tiled form (``halo.Tiled``), as ``parallel/foto_sharded.py`` does.
+The 4-component (rho, m1, m2, sigma) fields tile like the balanced ones
+(the source channel is pointwise, so it adds no halo traffic); halos move
+between neighbouring ranks and the CG and criterion reductions are
+all-reduced, so every rank reaches the same stop decision.  On one card, ranks share ``cuda:0`` over gloo through host
 memory (NCCL refuses two ranks on one device).
 
 Correctness contract (tests/test_torch_parallel.py): tiled == whole-grid

@@ -45,20 +45,31 @@ Ops sets (``stepA_ops``), named as the JAX CLI names them:
 
 On CPU tensors every kernel wrapper runs its plain torch version.
 
-Lockstep batches (JAX's ``vmap`` mode): :func:`solve_potential_batched`
-runs B pairs of (B, Ny, Nx) frames as one ALG2 loop on (B, 3, Nt, Ny, Nx)
-state, each pair stopping on its own rule (``solvers/lockstep.py``).  The
-iteration code is the single-pair code: ``lockstep_ops`` gives every ops
-set a form whose component axis is 1 (``cax``), whose ``sum`` and ``max``
-reduce per pair, whose CG is the masked batched CG and whose fused pass
-and kernels take the whole batch in one launch; ``auto_r`` gives each pair
-its own ``r`` (a ``lockstep.PerPair``).
+Forms.  A set is built on a form, which supplies what is the same for
+every set: the component axis ``cax``, ``sum`` and ``max``, the plain
+stencils, the CG, the projection's axes, ``host_only`` and how stepA is
+solved.  :class:`Single` is one pair; :class:`Lockstep` is JAX's ``vmap``
+mode, B pairs of (B, Ny, Nx) frames as one ALG2 loop on (B, 3, Nt, Ny,
+Nx) state, each pair stopping on its own rule (``solvers/lockstep.py``),
+``auto_r`` giving each pair its own ``r`` (a ``lockstep.PerPair``);
+``parallel.halo.Tiled`` is one rank's spatial tile.  Each set names its
+kernels once, in its :class:`Kernels` table (each hook's single-pair and
+batched form), and the form picks the column it runs: ``Single`` the
+single kernels, ``Lockstep`` the batched ones, ``Tiled`` no stencil
+kernel, #1 tile-local with its sums all-reduced and #4's tile form.  A
+hook with no kernel runs the form's plain stencil or the unfused pass.
+:func:`lockstep_ops` and ``parallel.gspmd.sharded_ops`` build a set on
+another form.
+
+One ALG2 iteration serves FOTO and WFR (``solvers/wfr.py``): WFR's
+source term (``delta``) adds a component to the gradient and to stepB,
+shifts stepA's ``eps`` by ``1/delta^2`` and takes ``x[3]/delta`` off
+stepA's right-hand side, which then never runs S2.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -84,12 +95,31 @@ def r_key(r):
     return r.values if isinstance(r, PerPair) else float(r)
 
 
-class _DefaultOps:
-    """Space-time operator set: plain torch stencils, CG stepA."""
-    cax = 0    # the component axis of mu, q and grad_phi
-    # the ALG2 loop can run on the device loop (no data-dependent inner
-    # loop in stepA); a tiled set keeps every loop on the host
-    alg2_on_device = False
+class Kernels(NamedTuple):
+    """A set's hand-written kernels, each hook as (single-pair form,
+    lockstep form), each taking ``r`` as ``lockstep.kernel_r`` gives it;
+    None runs the form's plain stencil, the unfused stepB + stepC +
+    criterion, or the plain stepA operator."""
+    grad_st: tuple | None = None           # S1
+    stepA_rhs: tuple | None = None         # S2, only where there is no source
+    fused_pointwise: tuple | None = None   # #1
+    cg_operator: tuple | None = None       # #4
+
+
+def _per_pair_sum(x):
+    return torch.sum(x.flatten(1), dim=1)
+
+
+def _per_pair_max(x):
+    return torch.amax(x.flatten(1), dim=1)
+
+
+class Single:
+    """The single-pair form: fields (3, Nt, Ny, Nx) with the component axis
+    first, whole-field sums, the plain stencils, the CG on the device loop
+    or the host loop, and each hook's single-pair kernel."""
+    name = "single"
+    cax = 0
     host_only = False
     cg_solve = staticmethod(cg_mod.cg)
     grad_st = staticmethod(operators.grad_st)
@@ -97,37 +127,139 @@ class _DefaultOps:
     laplacian_st = staticmethod(operators.laplacian_st)
     sum = staticmethod(torch.sum)
     max = staticmethod(torch.max)
-    project = staticmethod(project_paraboloid)
+
+    def hooks(self, kernels: Kernels) -> Kernels:
+        """The kernels of a set's table this form runs."""
+        return Kernels(*(None if k is None else k[0] for k in kernels))
+
+    def projection(self, project: Callable) -> Callable:
+        """A set's projection (components on axis 0) on this form's
+        fields."""
+        return project
+
+    def stepA(self, ops, F, *args, **kw):
+        """Solve A phi = F with the set's own ``solve``."""
+        return ops.solve(F, *args, **kw)
+
+
+class Lockstep(Single):
+    """The lockstep-batch form: fields carry the pair axis first and the
+    component axis second ((B, 3, Nt, Ny, Nx)), ``sum`` and ``max`` reduce
+    per pair to (B,), stepA's CG is the masked batched CG, and the
+    stencils, spectral solves and each hook's batched kernel act on the
+    whole batch."""
+    name = "lockstep"
+    cax = 1
+    cg_solve = staticmethod(cg_mod.cg_batched)
+    sum = staticmethod(_per_pair_sum)
+    max = staticmethod(_per_pair_max)
+
+    @staticmethod
+    def grad_st(phi, bc="N"):
+        return operators.grad_st(phi, bc=bc, dim=1)
+
+    @staticmethod
+    def div_st(mu, bc="N"):
+        return operators.div_st(mu, bc=bc, dim=1)
+
+    def hooks(self, kernels: Kernels) -> Kernels:
+        return Kernels(*(None if k is None else k[1] for k in kernels))
+
+    def projection(self, project: Callable) -> Callable:
+        # contiguous: the device loop latches a stopped pair's fields as
+        # contiguous segments (solvers/device_loop.py)
+        return lambda p: project(p.transpose(0, 1)).transpose(0, 1) \
+            .contiguous()
+
+
+SINGLE, LOCKSTEP = Single(), Lockstep()
+
+
+class _DefaultOps:
+    """The ``cg`` set: matrix-free CG stepA, no kernel.  Every set takes
+    its component axis, reductions, plain stencils and CG from its form
+    (``form``, default :data:`SINGLE`), and ``hooks``, the kernels of its
+    ``kernels`` table that the form runs."""
+    kernels = Kernels()
+    # stepA is a spectral solve with no data-dependent inner loop: the
+    # ALG2 loop can run on the device loop, and a tiled form solves it
+    # whole on the gathered F
+    spectral = False
+    projection = staticmethod(project_paraboloid)
     # k-beta-component projection for the source-extended (WFR) stepB
-    project_nd = staticmethod(project_paraboloid_nd)
+    projection_nd = staticmethod(project_paraboloid_nd)
+
+    def __init__(self, form: Single = SINGLE):
+        self.form = form
+        self.hooks = form.hooks(self.kernels)
+        self.cax, self.host_only, self.cg_solve = (form.cax, form.host_only,
+                                                   form.cg_solve)
+        self.sum, self.max = form.sum, form.max
+        self.grad_st = self.hooks.grad_st or form.grad_st
+        self.div_st, self.laplacian_st = form.div_st, form.laplacian_st
+        self.fused_pointwise = self.hooks.fused_pointwise
+        self.project = form.projection(self.projection)
+        self.project_nd = form.projection(self.projection_nd)
+
+    @property
+    def key(self):
+        """The set, its form and its own settings, as every graph cache
+        key of its loops names them."""
+        return (type(self), self.form.name, getattr(self, "refine", None))
+
+    def with_form(self, form: Single):
+        """This set, its own settings carried over, on ``form`` (with
+        plans of its own)."""
+        return type(self)(form=form)
 
     def cg_operator(self, r, reg_epsilon):
-        """The stepA system operator A = -r*L_st + r*eps*I as a callable
-        (its scalars formed once: a per-pair ``r``'s arithmetic makes a
-        new tensor on the device, which a captured CG step must not)."""
+        """The stepA system operator A = -r*L_st + r*eps*I as a callable:
+        the set's kernel, else the form's Laplacian (its scalars formed
+        once: a per-pair ``r``'s arithmetic makes a new tensor on the
+        device, which a captured CG step must not)."""
+        kernel = self.hooks.cg_operator
+        if kernel is not None:
+            r = kernel_r(r)
+            return lambda phi: kernel(phi, r, reg_epsilon)
         neg_r, reps = -r, r * reg_epsilon
         return lambda phi: (neg_r * self.laplacian_st(phi, bc="N")
                             + reps * phi)
 
-    def stepA_rhs(self, mu, q, rho0, rhoT, r):
-        """stepA's right-hand side: div_st(mu - r q) plus the time-boundary
-        terms injecting rho0 / rhoT (reference benamou_brenier.py:26-82)."""
+    def stepA_rhs(self, mu, q, rho0, rhoT, r, delta=None):
+        """stepA's right-hand side -G^T(mu - r q) plus the time-boundary
+        terms injecting rho0 / rhoT (reference benamou_brenier.py:26-82).
+        G is grad_st; with a source (WFR's ``delta``) it is (grad_st,
+        +1/delta), so -G^T x = div_st(x[:3]) - x[3]/delta.  The set's
+        kernel runs only where there is no source."""
+        kernel = self.hooks.stepA_rhs
+        if kernel is not None and delta is None:
+            return kernel(mu, q, rho0, rhoT, kernel_r(r))
         dt = 1.0
-        F = self.div_st(mu - r * q, bc="N")
+        if delta is None:
+            F = self.div_st(mu - r * q, bc="N")
+        else:
+            x = mu - r * q
+            F = (self.div_st(x.narrow(self.cax, 0, 3), bc="N")
+                 - x.select(self.cax, 3) / delta)
         rho, a = mu.select(self.cax, 0), q.select(self.cax, 0)
         operators.add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
         return F
 
     def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
                     loop="auto"):
-        """Solve A phi = F; returns (phi, inner_iterations).  Default:
-        matrix-free CG with the reference's scipy-cg semantics, on the
+        """Solve A phi = F -> (phi, inner_iterations): the set's
+        :meth:`solve` as its form runs it."""
+        return self.form.stepA(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
+                               loop=loop)
+
+    def solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter, loop="auto"):
+        """Matrix-free CG with the reference's scipy-cg semantics, on the
         device loop or the host loop (``loop``); its graph is cached under
         the set and the scalars its operator closes over."""
         res = self.cg_solve(self.cg_operator(r, reg_epsilon), F,
                             rtol=cg_rtol, maxiter=cg_maxiter,
                             dot=lambda a, b: self.sum(a * b), loop=loop,
-                            key=(type(self), r_key(r), float(reg_epsilon)))
+                            key=(self.key, r_key(r), float(reg_epsilon)))
         return res.x, res.iterations
 
 
@@ -136,9 +268,10 @@ class DCTOps(_DefaultOps):
     divide instead of hundreds of CG iterations.  Each instance keeps the
     transform matrices and spectrum of the systems it has solved, so one
     solve builds them once."""
-    alg2_on_device = True
+    spectral = True
 
-    def __init__(self):
+    def __init__(self, form: Single = SINGLE):
+        super().__init__(form)
         self._plans = {}
 
     def _plan(self, F, r, reg_epsilon):
@@ -154,8 +287,7 @@ class DCTOps(_DefaultOps):
                 F.shape, r, float(reg_epsilon), F.dtype, F.device)
         return plan
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
-                    loop="auto"):
+    def solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter, loop="auto"):
         return self._plan(F, r, reg_epsilon).solve(F), 1
 
 
@@ -166,12 +298,14 @@ class DCTRefinedOps(DCTOps):
     and one more low-precision solve, so a stepA counts ``1 + refine``
     inner iterations."""
 
-    def __init__(self, refine: int = 3):
-        super().__init__()
+    def __init__(self, refine: int = 3, form: Single = SINGLE):
+        super().__init__(form)
         self.refine = int(refine)
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
-                    loop="auto"):
+    def with_form(self, form: Single):
+        return type(self)(self.refine, form=form)
+
+    def solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter, loop="auto"):
         phi = self._plan(F, r, reg_epsilon).solve_refined(F, self.refine)
         return phi, 1 + self.refine
 
@@ -184,8 +318,7 @@ class DCTFusedOps(DCTOps):
     it has solved; the set holds the plans it has used too, so that a
     captured graph that baked them in keeps them alive."""
 
-    def stepA_solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter,
-                    loop="auto"):
+    def solve(self, F, r, reg_epsilon, cg_rtol, cg_maxiter, loop="auto"):
         r = kernel_r(r)
         plan = dct_solve_kernel.plan_for(F, r, reg_epsilon)
         self._plans[("kernel", id(plan))] = plan
@@ -193,31 +326,26 @@ class DCTFusedOps(DCTOps):
 
 
 class PallasOps(DCTOps):
-    """Spectral stepA plus the fused stepB + stepC + criterion pass (one
-    kernel launch per ALG2 iteration on CUDA tensors), with ``grad_st``
-    and stepA's right-hand side each one launch of the stencil kernels of
-    ``ops/kernels/stencil_st.py`` (bitwise the plain stencils).
-    ``project`` and ``project_nd`` are the standalone projection kernel,
-    which reads the component count from the array; no ALG2 path calls
-    them, since the fused pass does the projection."""
-    fused_pointwise = staticmethod(fused_pointwise)
-    grad_st = staticmethod(stencil_st.grad_st)
-    project = staticmethod(projection_kernel.project_paraboloid)
-    project_nd = project
-
-    @staticmethod
-    def stepA_rhs(mu, q, rho0, rhoT, r):
-        return stencil_st.stepA_rhs(mu, q, rho0, rhoT, kernel_r(r))
+    """Spectral stepA plus the fused stepB + stepC + criterion pass (#1,
+    one kernel launch per ALG2 iteration on CUDA tensors), with
+    ``grad_st`` (S1) and stepA's right-hand side (S2) each one launch of
+    the stencil kernels of ``ops/kernels/stencil_st.py`` (bitwise the
+    plain stencils).  ``project`` and ``project_nd`` are the standalone
+    projection kernel, which reads the component count from the array; no
+    ALG2 path calls them, since the fused pass does the projection."""
+    kernels = Kernels(
+        grad_st=(stencil_st.grad_st, stencil_st.grad_st_batched),
+        stepA_rhs=(stencil_st.stepA_rhs, stencil_st.stepA_rhs_batched),
+        fused_pointwise=(fused_pointwise, fused_pointwise_batched))
+    projection = staticmethod(projection_kernel.project_paraboloid)
+    projection_nd = projection
 
 
 class PallasCGOps(_DefaultOps):
     """Reference-faithful CG stepA whose operator is the hand-written
-    stencil kernel of ``ops/kernels/cg_operator.py`` (one launch per CG
-    step on CUDA tensors).  Same CG semantics as the ``cg`` set."""
-
-    def cg_operator(self, r, reg_epsilon):
-        r = kernel_r(r)
-        return lambda phi: cg_operator_blocked(phi, r, reg_epsilon)
+    stencil kernel of ``ops/kernels/cg_operator.py`` (#4, one launch per
+    CG step on CUDA tensors).  Same CG semantics as the ``cg`` set."""
+    kernels = Kernels(cg_operator=(cg_operator_blocked, cg_operator_blocked))
 
 
 DEFAULT_OPS = _DefaultOps()
@@ -227,76 +355,12 @@ DCT_OPS = DCTOps()
 PALLAS_OPS = PallasOps()
 
 
-def _per_pair_sum(x):
-    return torch.sum(x.flatten(1), dim=1)
-
-
-def _per_pair_max(x):
-    return torch.amax(x.flatten(1), dim=1)
-
-
-class _Lockstep:
-    """Mixin giving an ops set its lockstep-batch form: fields carry the
-    pair axis first and the component axis second ((B, 3, Nt, Ny, Nx)),
-    ``sum`` and ``max`` reduce per pair to (B,), stepA's CG is the masked
-    batched CG, and the stencils, spectral solves and kernels act on the
-    whole batch (the kernel wrappers take (B, ...) fields)."""
-    cax = 1
-    cg_solve = staticmethod(cg_mod.cg_batched)
-    sum = staticmethod(_per_pair_sum)
-    max = staticmethod(_per_pair_max)
-
-    @staticmethod
-    def grad_st(phi, bc="N"):
-        return operators.grad_st(phi, bc=bc, dim=1)
-
-    @staticmethod
-    def div_st(mu, bc="N"):
-        return operators.div_st(mu, bc=bc, dim=1)
-
-    # contiguous: the device loop latches a stopped pair's fields as
-    # contiguous segments (solvers/device_loop.py)
-    def project(self, p):
-        return super().project(p.transpose(0, 1)).transpose(0, 1) \
-            .contiguous()
-
-    def project_nd(self, p):
-        return super().project_nd(p.transpose(0, 1)).transpose(0, 1) \
-            .contiguous()
-
-
-def _fused_batched(grad_phi, mu, r, alpha=None, q_prev=None):
-    return fused_pointwise_batched(grad_phi, mu, kernel_r(r), alpha, q_prev)
-
-
-def _stepA_rhs_batched(mu, q, rho0, rhoT, r):
-    return stencil_st.stepA_rhs_batched(mu, q, rho0, rhoT, kernel_r(r))
-
-
-@functools.cache
-def _lockstep_class(cls):
-    # the batched kernels go into the class's own attributes: _Lockstep's
-    # plain stencils come first in its MRO
-    attrs = {}
-    if hasattr(cls, "fused_pointwise"):
-        attrs["fused_pointwise"] = staticmethod(_fused_batched)
-    if issubclass(cls, PallasOps):
-        attrs["grad_st"] = staticmethod(stencil_st.grad_st_batched)
-        attrs["stepA_rhs"] = staticmethod(_stepA_rhs_batched)
-    return type(f"Lockstep{cls.__name__}", (_Lockstep, cls), attrs)
-
-
 def lockstep_ops(ops):
-    """The lockstep-batch form of the ops set ``ops`` (its own state, such
-    as ``DCTRefinedOps.refine``, carried over; ``ops`` itself if it is one
-    already)."""
-    if isinstance(ops, _Lockstep):
-        return ops
-    batched = object.__new__(_lockstep_class(type(ops)))
-    batched.__dict__.update(vars(ops))
-    if hasattr(batched, "_plans"):
-        batched._plans = {}
-    return batched
+    """The lockstep-batch form of the ops set ``ops`` (its own settings,
+    such as ``DCTRefinedOps.refine``, carried over; ``ops`` itself if it is
+    one already)."""
+    return ops if isinstance(ops.form, Lockstep) else ops.with_form(LOCKSTEP)
+
 
 _OPS = {"cg": _DefaultOps, "dct": DCTOps, "dct-refined": DCTRefinedOps,
         "pallas": PallasOps, "dct-fused": DCTFusedOps,
@@ -365,13 +429,13 @@ def init_state(rho0: torch.Tensor, rhoT: torch.Tensor, Nt: int) -> FotoState:
         done=torch.zeros(pairs, dtype=torch.bool, device=device))
 
 
-def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, cg_rtol, cg_maxiter,
-           ops=DEFAULT_OPS, loop="auto"):
-    """Solve A phi = div_st(mu - r q) + time-BC terms
-    (reference benamou_brenier.py:26-91)."""
-    F = ops.stepA_rhs(mu, q, rho0, rhoT, r)
-    return ops.stepA_solve(F, r, reg_epsilon, cg_rtol, cg_maxiter,
-                           loop=loop)
+def _grad(phi, ops, delta):
+    """grad_st phi; with a source (``delta``) G phi = (grad_st phi,
+    +phi/delta), WFR's space-time 'gradient'."""
+    g = ops.grad_st(phi, bc="N")
+    if delta is None:
+        return g
+    return torch.cat([g, (phi / delta).unsqueeze(ops.cax)], dim=ops.cax)
 
 
 def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,
@@ -384,34 +448,57 @@ def alg2_iteration(state: FotoState, rho0, rhoT, *, r, reg_epsilon,
     ``alpha*grad_phi + (1-alpha)*q_prev`` instead of ``grad_phi``
     (alpha = 1.0 is the reference's exact iteration).  Must be a Python
     float.  ``loop``: how a CG stepA runs its loop."""
+    return _iteration(state, rho0, rhoT, None, r=r, reg_epsilon=reg_epsilon,
+                      convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+                      cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it,
+                      ops=ops, admm_alpha=admm_alpha, loop=loop)
+
+
+def _iteration(state: FotoState, rho0, rhoT, delta, *, r, reg_epsilon,
+               convergence_tol, cg_rtol, cg_maxiter, verbose, max_it, ops,
+               admm_alpha, loop) -> FotoState:
+    """The ALG2 iteration of FOTO (``delta`` None) and of WFR (a source
+    term with length ``delta``: k = 3 beta components instead of 2, stepA
+    with ``reg_epsilon + 1/delta^2``)."""
     mu, q_prev = state.mu, state.q
 
-    phi, cg_iters = _stepA(mu, q_prev, rho0, rhoT, r, reg_epsilon,
-                           cg_rtol, cg_maxiter, ops, loop)
+    # stepA (reference benamou_brenier.py:26-91); its right-hand side is
+    # freed before the rest of the iteration allocates
+    eps = reg_epsilon if delta is None else reg_epsilon + 1.0 / (delta * delta)
+    phi, cg_iters = ops.stepA_solve(
+        ops.stepA_rhs(mu, q_prev, rho0, rhoT, r, delta), r, eps, cg_rtol,
+        cg_maxiter, loop=loop)
 
-    grad_phi = ops.grad_st(phi, bc="N")
-    fused = getattr(ops, "fused_pointwise", None)
-    if fused is not None and admm_alpha == 1.0:
-        q, mu, num, denom = fused(grad_phi, mu, r)
-    elif fused is not None:
-        # the pass builds alpha*grad_phi + (1-alpha)*q_prev itself and keeps
-        # the criterion on the true grad_phi
-        q, mu, num, denom = fused(grad_phi, mu, r, admm_alpha, q_prev)
+    grad_phi = _grad(phi, ops, delta)
+    fused = ops.fused_pointwise
+    if fused is not None:
+        # the pass reads the component count from the arrays (its speed^2
+        # spans every beta component, the source dual included), builds
+        # alpha*grad_phi + (1-alpha)*q_prev itself and keeps the criterion
+        # on the true grad_phi
+        relax = () if admm_alpha == 1.0 else (admm_alpha, q_prev)
+        q, mu, num, denom = fused(grad_phi, mu, kernel_r(r), *relax)
     else:
         relaxed = (grad_phi if admm_alpha == 1.0 else
                    admm_alpha * grad_phi + (1.0 - admm_alpha) * q_prev)
-        q = ops.project(relaxed + mu / r)
+        project = ops.project if delta is None else ops.project_nd
+        q = project(relaxed + mu / r)
         mu = mu + r * (relaxed - q)
         # density positivity; mu is fresh
         mu.select(ops.cax, 0).clamp_(min=0.0)
 
-        # Hamilton–Jacobi residual criterion
-        # (reference benamou_brenier.py:246-251)
-        g0, g1, g2 = (grad_phi.select(ops.cax, i) for i in range(3))
+        # Hamilton–Jacobi residual criterion (reference
+        # benamou_brenier.py:246-251), with the source: dt phi +
+        # (|grad phi|^2 + phi^2/delta^2) / 2 = 0 on the support of rho
+        g = [grad_phi.select(ops.cax, i)
+             for i in range(grad_phi.shape[ops.cax])]
         rho = mu.select(ops.cax, 0)
-        res = g0 + 0.5 * (g1 ** 2 + g2 ** 2)
+        speed2 = g[1] ** 2 + g[2] ** 2
+        if delta is not None:
+            speed2 = speed2 + g[3] ** 2
+        res = g[0] + 0.5 * speed2
         num = ops.sum(rho * torch.abs(res))
-        denom = ops.sum(rho * (g1 ** 2 + g2 ** 2))
+        denom = ops.sum(rho * speed2)
     crit = torch.sqrt(num / (denom + 1e-10))
 
     prev_crit = state.crit
@@ -462,19 +549,50 @@ def _verbose_lines(verbose, max_it) -> dict:
                 show=lambda crit, it: print(f"{crit} ({it}/{max_it})"))
 
 
-def run_alg2(state, rho0, rhoT, iterate, *, max_it, verbose, mode, ops,
-             key):
-    """The ALG2 loop of a single pair: ``iterate(state, rho0, rhoT, loop,
-    verbose)`` until done or ``max_it``.  ``mode="device"`` with a set
-    whose stepA has no inner loop: the device loop, its graph cached under
-    ``key``, the counters int64 tensors during the loop and ints after it,
-    and the verbose lines printed from each block's records.  Otherwise
-    one ``done`` read per iteration (a CG stepA's own loop on ``mode``).
-    Span ``alg2.loop``, ended by the counters' read."""
+def _key(name, ops, r, params):
+    """The graph cache key of an ALG2 loop: the solver (``foto`` or
+    ``wfr``), the set with its form, and what its iteration bakes in."""
+    return (name, ops.key, r_key(r), tuple(sorted(params.items())))
+
+
+def run_loop(name, iteration, init_state, rho0, rhoT, Nt, init, *, batched,
+             ops, r, auto_r, max_it, verbose, loop, **params):
+    """The ALG2 loop of FOTO or WFR (``name``) from ``init`` or
+    ``init_state``'s state: ``iteration`` (the solver module's own
+    ``alg2_iteration``, as it stands when the solve starts) with
+    ``params``, until done or ``max_it``.
+
+    One pair: with ``loop`` "device" and a spectral set, the device loop,
+    its graph cached under the loop's key, the counters int64 tensors
+    during the loop and ints after it, and the verbose lines printed from
+    each block's records; otherwise one ``done`` read per iteration (a CG
+    stepA's own loop on ``loop``).  Span ``alg2.loop``, ended by the
+    counters' read.  ``batched``: a lockstep batch through
+    ``lockstep.run``, on the device loop likewise."""
+    if batched:
+        ops = lockstep_ops(ops)
+        if auto_r:
+            r = PerPair(scale_invariant_r(rho0, rhoT, r, ops=ops).tolist(),
+                        rho0)
+    elif auto_r:
+        r = float(scale_invariant_r(rho0, rhoT, r, ops=ops))
+    state = init_state(rho0, rhoT, Nt) if init is None else init
+    key = _key(name, ops, r, params)
+    mode = loop_mode(loop, ops, rho0.device)
+    on_device = mode == "device" and ops.spectral
+
+    def iterate(s, a, b, inner=mode, show=False):
+        return iteration(s, a, b, r=r, max_it=max_it, verbose=show, ops=ops,
+                         loop=inner, **params)
+
+    if batched:
+        return lockstep.run(state, iterate, max_it, (rho0, rhoT),
+                            loop="device" if on_device else "host", key=key,
+                            **_verbose_lines(verbose, max_it))
     with trace.annotate("alg2.loop"):
-        if mode == "host" or not ops.alg2_on_device:
+        if not on_device:
             while state.iteration < max_it and not bool(state.done):
-                state = iterate(state, rho0, rhoT, mode, verbose)
+                state = iterate(state, rho0, rhoT, show=verbose)
             return state
 
         def count(n):
@@ -483,8 +601,7 @@ def run_alg2(state, rho0, rhoT, iterate, *, max_it, verbose, mode, ops,
         state = state._replace(iteration=count(state.iteration),
                                cg_iterations=count(state.cg_iterations))
         state = device_loop.while_loop(
-            lambda s, a, b: iterate(s, a, b, "device", False),
-            lambda s, a, b: ~s.done & (s.iteration < max_it),
+            iterate, lambda s, a, b: ~s.done & (s.iteration < max_it),
             state, (rho0, rhoT), key=(key, max_it),
             **_verbose_lines(verbose, max_it))
         it, cg = torch.stack([state.iteration, state.cg_iterations]).tolist()
@@ -501,39 +618,15 @@ def alg2_loop(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
 
     ``loop``: "device" (the device loop; for the ``cg`` sets the CG's
     loop), "host" or "auto" ("device" on cuda, "host" on the CPU)."""
-    if auto_r:
-        r = float(scale_invariant_r(rho0, rhoT, r, ops=ops))
-    state = init_state(rho0, rhoT, Nt) if init is None else init
-
-    def iterate(s, a, b, inner, show):
-        return alg2_iteration(
-            s, a, b, r=r, reg_epsilon=reg_epsilon,
-            convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
-            admm_alpha=admm_alpha, loop=inner)
-
-    return run_alg2(state, rho0, rhoT, iterate, max_it=max_it,
-                    verbose=verbose, mode=loop_mode(loop, ops, rho0.device),
-                    ops=ops, key=_key(ops, r, reg_epsilon, convergence_tol,
-                                      admm_alpha))
-
-
-def _key(ops, r, reg_epsilon, convergence_tol, admm_alpha):
-    """The graph cache key of a FOTO loop: what its iteration bakes in."""
-    return ("foto", type(ops), getattr(ops, "refine", None), r_key(r),
-            float(reg_epsilon), float(convergence_tol), float(admm_alpha))
+    return run_loop(
+        "foto", alg2_iteration, init_state, rho0, rhoT, Nt, init,
+        batched=False, ops=ops, r=r, auto_r=auto_r, max_it=max_it,
+        verbose=verbose, loop=loop, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, admm_alpha=admm_alpha)
 
 
 solve_potential = alg2_loop
-
-
-def lockstep_r(rho0, rhoT, r, ops, auto_r):
-    """The penalty of a lockstep batch: ``r`` itself, or with ``auto_r``
-    each pair's own ``scale_invariant_r`` as a ``PerPair`` (its float, as a
-    single pair's solve takes it)."""
-    if not auto_r:
-        return r
-    return PerPair(scale_invariant_r(rho0, rhoT, r, ops=ops).tolist(), rho0)
 
 
 def alg2_loop_batched(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
@@ -547,32 +640,14 @@ def alg2_loop_batched(rho0, rhoT, Nt, *, r=1.0, convergence_tol=0.3,
     stops on its own rule (its fields, criteria and counters then stay as
     they were).  Returns a FotoState with a leading batch axis and (B,)
     counters, as JAX's ``vmap`` of ``solve_potential`` does.  ``loop`` as
-    in :func:`alg2_loop`, through ``lockstep.run``."""
-    ops = lockstep_ops(ops)
-    r = lockstep_r(rho0, rhoT, r, ops, auto_r)
-    state = init_state(rho0, rhoT, Nt) if init is None else init
-    return run_lockstep(
-        state, rho0, rhoT, max_it, verbose, ops, loop,
-        _key(ops, r, reg_epsilon, convergence_tol, admm_alpha),
-        lambda s, a, b, inner, show: alg2_iteration(
-            s, a, b, r=r, reg_epsilon=reg_epsilon,
-            convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
-            admm_alpha=admm_alpha, loop=inner))
-
-
-def run_lockstep(state, rho0, rhoT, max_it, verbose, ops, loop, key,
-                 iterate):
-    """A lockstep batch's ALG2 loop through ``lockstep.run``: on the device
-    loop for the sets whose stepA has no inner loop, else on the host with
-    the CG's loop on the device under ``loop="device"``; the verbose lines
-    printed from the carried state either way."""
-    mode = loop_mode(loop, ops, rho0.device)
-    on_device = mode == "device" and ops.alg2_on_device
-    return lockstep.run(
-        state, lambda s, a, b: iterate(s, a, b, mode, False), max_it,
-        (rho0, rhoT), loop="device" if on_device else "host", key=key,
-        **_verbose_lines(verbose, max_it))
+    in :func:`alg2_loop`, through ``lockstep.run``; with ``auto_r`` each
+    pair has its own ``scale_invariant_r`` (a ``PerPair``)."""
+    return run_loop(
+        "foto", alg2_iteration, init_state, rho0, rhoT, Nt, init,
+        batched=True, ops=ops, r=r, auto_r=auto_r, max_it=max_it,
+        verbose=verbose, loop=loop, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, admm_alpha=admm_alpha)
 
 
 solve_potential_batched = alg2_loop_batched

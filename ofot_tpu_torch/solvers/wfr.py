@@ -20,14 +20,19 @@ the FOTO machinery (Chizat, Peyré, Schmitzer, Vialard):
     components);
   * stepC and the Hamilton–Jacobi criterion extend with the c-component.
 
+These are the source term of FOTO's own iteration body
+(``foto._iteration`` with ``delta``), which this module's
+:func:`alg2_iteration` runs; stepA's right-hand side is the set's plain
+one with the source, never the S2 kernel.
+
 State: ``foto.FotoState`` with mu, q of shape (4, Nt, Ny, Nx) — components
 (rho, m1, m2, sigma) where sigma = delta * zeta is the scaled source; the
-.npz checkpoint layout is unchanged.  The loop runs as the port's FOTO
-runs it (``foto.run_alg2``): on the device loop on cuda for the sets whose
-stepA has no inner loop, the k=3 fused pass and ``delta`` baked into the
-captured graph, else on the host with one ``done`` read per iteration.
-:func:`solve_potential_batched` runs a lockstep batch of pairs, as
-``foto.solve_potential_batched`` does.
+.npz checkpoint layout is unchanged.  The loop is FOTO's
+(``foto.run_loop``, which calls this module's :func:`alg2_iteration`): on
+the device loop on cuda for the sets whose stepA has no inner loop, the
+k=3 fused pass and ``delta`` baked into the captured graph, else on the
+host with one ``done`` read per iteration.  :func:`solve_potential_batched`
+runs a lockstep batch of pairs, as ``foto.solve_potential_batched`` does.
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ from typing import NamedTuple
 
 import torch
 
-from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.solvers import flow_extract, foto
 from ofot_tpu_torch.solvers.flow_extract import flow_from_potential  # noqa: F401
 from ofot_tpu_torch.utils import trace
@@ -84,26 +88,12 @@ def G_st(phi, delta, ops=foto.DEFAULT_OPS):
 
     The + sign of the source component is the one for which stationarity
     of <mu, G phi> in phi reproduces ``dt rho + div m = +zeta``."""
-    return torch.cat([ops.grad_st(phi, bc="N"),
-                      (phi / delta).unsqueeze(ops.cax)], dim=ops.cax)
+    return foto._grad(phi, ops, delta)
 
 
-def _stepA(mu, q, rho0, rhoT, r, reg_epsilon, delta, cg_rtol, cg_maxiter,
-           ops, loop="auto"):
-    """Solve (r G^T G + r eps I) phi = -G^T(mu - r q) + time-BC terms.
-
-    -G^T x = div_st(x[:3]) - x[3]/delta, and G^T G = -L_st + I/delta^2, so
-    the system is the balanced stepA operator with reg_epsilon +
-    1/delta^2."""
-    dt = 1.0
-    x = mu - r * q
-    F = (ops.div_st(x.narrow(ops.cax, 0, 3), bc="N")
-         - x.select(ops.cax, 3) / delta)
-    rho, a = mu.select(ops.cax, 0), q.select(ops.cax, 0)
-    operators.add_time_boundary(F, rho, a, rho0, rhoT, r, dt)
-
-    eps_eff = reg_epsilon + 1.0 / (delta * delta)
-    return ops.stepA_solve(F, r, eps_eff, cg_rtol, cg_maxiter, loop=loop)
+def _ops(ops):
+    """``ops``, or the JAX package's default: a fresh ``dct`` set."""
+    return foto.stepA_ops("dct") if ops is None else ops
 
 
 def alg2_iteration(state: foto.FotoState, rho0, rhoT, *, r, delta,
@@ -111,61 +101,21 @@ def alg2_iteration(state: foto.FotoState, rho0, rhoT, *, r, delta,
                    cg_maxiter=1000, verbose=False, max_it=100,
                    ops=None, admm_alpha=1.0,
                    loop="auto") -> foto.FotoState:
-    """One unbalanced ALG2 iteration (stepA + 4-component stepB/stepC +
-    extended Hamilton–Jacobi criterion).  ``ops`` defaults to a fresh
-    ``dct`` set, the JAX package's default.
+    """One unbalanced ALG2 iteration: FOTO's with the source term (stepA
+    on ``-G^T`` with ``reg_epsilon + 1/delta^2``, since G^T G = -L_st +
+    I/delta^2; the 4-component stepB/stepC; the extended Hamilton–Jacobi
+    criterion).  ``ops`` defaults to a fresh ``dct`` set, the JAX
+    package's default.
 
     ``admm_alpha``: ADMM over-relaxation, as in
     :func:`foto.alg2_iteration` — stepB/stepC act on
     ``alpha*G(phi) + (1-alpha)*q_prev``.  Must be a Python float.
     ``loop``: how a CG stepA runs its loop."""
-    if ops is None:
-        ops = foto.stepA_ops("dct")
-    mu, q_prev = state.mu, state.q
-
-    phi, cg_iters = _stepA(mu, q_prev, rho0, rhoT, r, reg_epsilon, delta,
-                           cg_rtol, cg_maxiter, ops, loop)
-    gphi = G_st(phi, delta, ops)
-
-    fused = getattr(ops, "fused_pointwise", None)
-    if fused is not None and admm_alpha == 1.0:
-        # the fused pass reads the component count (4) from the arrays; its
-        # speed^2 spans every beta component, the source dual included
-        q, mu, num, denom = fused(gphi, mu, r)
-    elif fused is not None:
-        q, mu, num, denom = fused(gphi, mu, r, admm_alpha, q_prev)
-    else:
-        relaxed = (gphi if admm_alpha == 1.0 else
-                   admm_alpha * gphi + (1.0 - admm_alpha) * q_prev)
-        q = ops.project_nd(relaxed + mu / r)
-        mu = mu + r * (relaxed - q)
-        # density positivity; mu is fresh
-        mu.select(ops.cax, 0).clamp_(min=0.0)
-
-        # HJ criterion with the source term: dt phi + (|grad phi|^2
-        # + phi^2/delta^2) / 2 = 0 on the support of rho
-        g0, g1, g2, g3 = (gphi.select(ops.cax, i) for i in range(4))
-        rho = mu.select(ops.cax, 0)
-        speed2 = g1 ** 2 + g2 ** 2 + g3 ** 2
-        res = g0 + 0.5 * speed2
-        num = ops.sum(rho * torch.abs(res))
-        denom = ops.sum(rho * speed2)
-    crit = torch.sqrt(num / (denom + 1e-10))
-
-    prev_crit = state.crit
-    done = (crit <= convergence_tol) | (
-        (prev_crit >= 0) & (torch.abs(prev_crit - crit) < 1e-5))
-    done = done | torch.isnan(crit)
-
-    if verbose:
-        print(f"{foto._shown(crit)} ({foto._shown(state.iteration + 1)}"
-              f"/{max_it})")
-
-    return foto.FotoState(mu=mu, q=q, phi=phi, crit=crit,
-                          prev_crit=prev_crit,
-                          iteration=state.iteration + 1,
-                          cg_iterations=state.cg_iterations + cg_iters,
-                          done=done)
+    return foto._iteration(
+        state, rho0, rhoT, delta, r=r, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, verbose=verbose, max_it=max_it,
+        ops=_ops(ops), admm_alpha=admm_alpha, loop=loop)
 
 
 def alg2_loop(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
@@ -179,30 +129,12 @@ def alg2_loop(rho0, rhoT, Nt, *, delta=10.0, r=1.0, convergence_tol=0.3,
     ALG2 update are jointly 1-homogeneous in (rho, m, zeta, r), as in the
     balanced case; see :func:`foto.scale_invariant_r`).  ``loop`` as in
     :func:`foto.alg2_loop`."""
-    if ops is None:
-        ops = foto.stepA_ops("dct")
-    if auto_r:
-        r = float(foto.scale_invariant_r(rho0, rhoT, r, ops=ops))
-    state = init_state(rho0, rhoT, Nt) if init is None else init
-
-    def iterate(s, a, b, inner, show):
-        return alg2_iteration(
-            s, a, b, r=r, delta=delta, reg_epsilon=reg_epsilon,
-            convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
-            admm_alpha=admm_alpha, loop=inner)
-
-    return foto.run_alg2(
-        state, rho0, rhoT, iterate, max_it=max_it, verbose=verbose,
-        mode=foto.loop_mode(loop, ops, rho0.device), ops=ops,
-        key=_key(ops, r, delta, reg_epsilon, convergence_tol, admm_alpha))
-
-
-def _key(ops, r, delta, reg_epsilon, convergence_tol, admm_alpha):
-    """The graph cache key of a WFR loop: what its iteration bakes in."""
-    return ("wfr", type(ops), getattr(ops, "refine", None), foto.r_key(r),
-            float(delta), float(reg_epsilon), float(convergence_tol),
-            float(admm_alpha))
+    return foto.run_loop(
+        "wfr", alg2_iteration, init_state, rho0, rhoT, Nt, init,
+        batched=False, ops=_ops(ops), r=r, auto_r=auto_r, max_it=max_it,
+        verbose=verbose, loop=loop, delta=delta, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, admm_alpha=admm_alpha)
 
 
 solve_potential = alg2_loop
@@ -217,17 +149,12 @@ def alg2_loop_batched(rho0, rhoT, Nt, *, delta=10.0, r=1.0,
     """Unbalanced ALG2 on a lockstep batch of (B, Ny, Nx) frames, each
     pair stopping on its own rule, as ``foto.alg2_loop_batched`` runs the
     balanced one.  ``ops`` defaults to a fresh ``dct`` set."""
-    ops = foto.lockstep_ops(foto.stepA_ops("dct") if ops is None else ops)
-    r = foto.lockstep_r(rho0, rhoT, r, ops, auto_r)
-    state = init_state(rho0, rhoT, Nt) if init is None else init
-    return foto.run_lockstep(
-        state, rho0, rhoT, max_it, verbose, ops, loop,
-        _key(ops, r, delta, reg_epsilon, convergence_tol, admm_alpha),
-        lambda s, a, b, inner, show: alg2_iteration(
-            s, a, b, r=r, delta=delta, reg_epsilon=reg_epsilon,
-            convergence_tol=convergence_tol, cg_rtol=cg_rtol,
-            cg_maxiter=cg_maxiter, verbose=show, max_it=max_it, ops=ops,
-            admm_alpha=admm_alpha, loop=inner))
+    return foto.run_loop(
+        "wfr", alg2_iteration, init_state, rho0, rhoT, Nt, init,
+        batched=True, ops=_ops(ops), r=r, auto_r=auto_r, max_it=max_it,
+        verbose=verbose, loop=loop, delta=delta, reg_epsilon=reg_epsilon,
+        convergence_tol=convergence_tol, cg_rtol=cg_rtol,
+        cg_maxiter=cg_maxiter, admm_alpha=admm_alpha)
 
 
 solve_potential_batched = alg2_loop_batched

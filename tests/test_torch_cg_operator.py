@@ -112,7 +112,12 @@ def test_cg_pallas_set_uses_the_blocked_entry(monkeypatch):
         calls.append((r, eps))
         return real(x, r, eps)
 
-    monkeypatch.setattr(foto, "cg_operator_blocked", spy)
+    # the set names the blocked entry in its kernel table, for the
+    # single-pair and the lockstep form alike
+    blocked = foto.PallasCGOps.kernels.cg_operator
+    assert blocked == (cgk.cg_operator_blocked, cgk.cg_operator_blocked)
+    monkeypatch.setattr(foto.PallasCGOps, "kernels",
+                        foto.Kernels(cg_operator=(spy, spy)))
     ops = foto.stepA_ops("cg-pallas")
     F = torch.from_numpy(RNG.standard_normal((3, 4, 5)))
     phi, n = ops.stepA_solve(F, 1.0, 1e-2, 1e-6, 1000)

@@ -28,7 +28,7 @@ from jax.experimental import pallas as pl
 from ofot_tpu.ops.pallas import kernels
 from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.parallel import gspmd
-from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.parallel.halo import Tiled
 from ofot_tpu_torch.solvers import foto
 
 FIELD = np.random.default_rng(53).standard_normal((4, 8, 12))
@@ -149,22 +149,43 @@ def test_a_one_line_tile_needs_a_line_on_that_axis():
 
 
 class _LoneMesh:
-    """A mesh of one rank: no neighbour on any side."""
+    """A mesh of one rank: no neighbour on any side, so every collective
+    returns this rank's own values."""
+    device = torch.device("cpu")
 
     @staticmethod
     def size(name):
         return 1
 
     @staticmethod
+    def index(name):
+        return 0
+
+    @staticmethod
     def exchange(sends, recvs):
         assert sends == [] and recvs == []
         return []
 
+    @staticmethod
+    def all_reduce(t, op=None, group=None):
+        return t.clone()
+
+    @staticmethod
+    def gather(t):
+        return t
+
+    @staticmethod
+    def tile(t):
+        return torch.as_tensor(t).contiguous()
+
 
 def test_sharded_ops_maps_cg_pallas_to_the_tile_set():
+    """The tiled form of ``cg-pallas`` runs #4's tile form on the halo
+    stencils' mesh, on host loops."""
     tiled = gspmd.sharded_ops(foto.stepA_ops("cg-pallas"), _LoneMesh())
-    assert type(tiled) is gspmd.TiledPallasCGOps
-    assert isinstance(tiled, ShardedOps) and tiled.host_only
+    assert type(tiled) is foto.PallasCGOps
+    assert isinstance(tiled.form, Tiled) and tiled.host_only
+    assert tiled.hooks.cg_operator.__func__ is Tiled._cg_operator_tile
     with pytest.raises(ValueError, match="not a single-pair"):
         gspmd.sharded_ops(foto.lockstep_ops(foto.stepA_ops("cg-pallas")),
                           _LoneMesh())
@@ -174,5 +195,6 @@ def test_tile_set_operator_on_a_lone_tile_is_the_whole_operator():
     """On a mesh of one rank every side is a global edge: the tiled set's
     SpMV is the whole-field operator, bitwise."""
     f = torch.from_numpy(FIELD)
-    A = gspmd.TiledPallasCGOps(_LoneMesh()).cg_operator(0.7, 1e-3)
+    A = gspmd.sharded_ops(foto.stepA_ops("cg-pallas"),
+                          _LoneMesh()).cg_operator(0.7, 1e-3)
     assert torch.equal(A(f), cgk.cg_operator_reference(f, 0.7, 1e-3))

@@ -37,8 +37,7 @@ from ofot_tpu.solvers import pyramid as jax_pyramid
 from ofot_tpu.solvers import sinkhorn as jax_sk
 from ofot_tpu.solvers import wfr as jax_wfr
 from ofot_tpu.parallel import sweep as jax_sweep
-from ofot_tpu_torch.parallel import sweep
-from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.parallel import gspmd, sweep
 from ofot_tpu_torch.solvers import (device_loop, foto, gn, hs, lockstep,
                                     pyramid, sinkhorn, wfr)
 
@@ -461,7 +460,8 @@ def test_loop_keyword_resolves_by_device():
 
 
 def test_tiled_sets_keep_their_loops_on_the_host():
-    assert foto.loop_mode("device", ShardedOps(None), "cuda") == "host"
+    tiled = gspmd.sharded_ops(foto.stepA_ops("cg"), None)
+    assert foto.loop_mode("device", tiled, "cuda") == "host"
     assert foto.loop_mode("auto", foto.stepA_ops("pallas"),
                           "cuda") == "device"
 

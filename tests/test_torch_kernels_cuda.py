@@ -822,18 +822,14 @@ def test_lockstep_pairs_are_bitwise_their_single_solves_on_card(
 
 def _plain_stencil_pallas(lockstep):
     """The ``pallas`` set with the plain stencils in place of the stencil
-    kernels (#1 kept), single-pair or lockstep."""
-    from ofot_tpu_torch.ops import operators
+    kernels (#1 kept), on the single-pair or the lockstep form."""
     from ofot_tpu_torch.solvers import foto
 
     class PlainStencils(foto.PallasOps):
-        grad_st = staticmethod(operators.grad_st)
-        stepA_rhs = foto._DefaultOps.stepA_rhs
+        kernels = foto.PallasOps.kernels._replace(grad_st=None,
+                                                  stepA_rhs=None)
 
-    class LockstepPlainStencils(foto._Lockstep, PlainStencils):
-        fused_pointwise = staticmethod(foto._fused_batched)
-
-    return LockstepPlainStencils() if lockstep else PlainStencils()
+    return PlainStencils(foto.LOCKSTEP if lockstep else foto.SINGLE)
 
 
 @pytest.mark.cuda

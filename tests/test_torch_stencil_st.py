@@ -4,8 +4,9 @@ On the CPU the wrappers run their plain versions, which must be bitwise
 the stencils they stand for: ``operators.grad_st``, and ``div_st`` of
 ``mu - r*q`` plus ``add_time_boundary``, the code stepA ran before its
 right-hand side became an ops hook.  ``_DefaultOps.stepA_rhs`` is that
-code for every ops set; the ``pallas`` set and its lockstep form take
-the kernels, the tiled sets keep the plain stencils on their halos.  The
+code for every ops set; the ``pallas`` set's table names the kernels,
+which its single-pair and lockstep forms run, while the tiled form keeps
+the plain stencils on its halos.  The
 kernels themselves are held bitwise against these plain versions on the
 card in tests/test_torch_kernels_cuda.py (dtype, contiguity and axes of
 length 1 are refused there).
@@ -19,7 +20,7 @@ from ofot_tpu_torch.ops import kernels, operators
 from ofot_tpu_torch.ops.kernels import _build
 from ofot_tpu_torch.ops.kernels import stencil_st as ss
 from ofot_tpu_torch.parallel import gspmd
-from ofot_tpu_torch.parallel.halo import ShardedOps
+from ofot_tpu_torch.parallel.halo import Tiled
 from ofot_tpu_torch.solvers import foto
 from ofot_tpu_torch.solvers.lockstep import PerPair
 
@@ -120,7 +121,7 @@ def test_every_ops_set_forms_the_old_right_hand_side(solver, dtype):
     mu, q, rho0, rhoT = _fields((4, 6, 8), dtype, batch=3)
     for r in (0.8, PerPair([0.7, 1.0, 1.3], rho0)):
         want = _old_stepA_rhs(mu, q, rho0, rhoT, r, 1,
-                              foto._Lockstep.div_st)
+                              foto.Lockstep.div_st)
         assert _bitwise(lock.stepA_rhs(mu, q, rho0, rhoT, r), want)
 
 
@@ -131,21 +132,26 @@ def test_default_stepA_rhs_is_the_plain_version_of_the_kernel():
 
 
 def test_pallas_sets_take_the_kernels_and_lockstep_the_batched_forms():
-    """``PallasOps`` takes the kernel wrappers, its lockstep form the
-    batched ones (not ``_Lockstep``'s plain stencils, first in its MRO);
-    the other sets and the tiled ``pallas`` set keep the plain stencils."""
-    assert foto.PallasOps.grad_st is ss.grad_st
+    """``PallasOps``'s table names the kernel wrappers: its single-pair
+    form runs them, its lockstep form the batched ones (not the lockstep
+    form's plain stencils); the other sets and the tiled ``pallas`` set
+    keep the plain stencils and the plain right-hand side."""
+    assert foto.PallasOps.kernels.grad_st == (ss.grad_st, ss.grad_st_batched)
+    single = foto.PALLAS_OPS
+    assert single.grad_st is ss.grad_st
+    assert single.hooks.stepA_rhs is ss.stepA_rhs
     lock = foto.lockstep_ops(foto.PALLAS_OPS)
-    assert type(lock).grad_st is ss.grad_st_batched
-    assert type(lock).stepA_rhs is foto._stepA_rhs_batched
+    assert lock.grad_st is ss.grad_st_batched
+    assert lock.hooks.stepA_rhs is ss.stepA_rhs_batched
     for solver in ("cg", "dct", "dct-refined", "dct-fused", "cg-pallas"):
-        cls = type(foto.stepA_ops(solver))
-        assert cls.stepA_rhs is foto._DefaultOps.stepA_rhs
-        assert type(foto.lockstep_ops(cls())).grad_st is \
-            foto._Lockstep.grad_st
-    tiled = gspmd._gathered_class(foto.PallasOps)
-    assert tiled.stepA_rhs is foto._DefaultOps.stepA_rhs
-    assert tiled.grad_st is ShardedOps.grad_st
+        ops = foto.stepA_ops(solver)
+        assert type(ops).stepA_rhs is foto._DefaultOps.stepA_rhs
+        assert ops.hooks.stepA_rhs is None
+        assert ops.grad_st is operators.grad_st
+        assert foto.lockstep_ops(ops).grad_st is foto.Lockstep.grad_st
+    tiled = gspmd.sharded_ops(foto.stepA_ops("pallas"), None)
+    assert tiled.hooks.stepA_rhs is None and tiled.hooks.grad_st is None
+    assert tiled.grad_st.__func__ is Tiled.grad_st
 
 
 def test_lockstep_pallas_iteration_on_cpu_counts_no_launch(no_launches):
