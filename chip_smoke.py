@@ -42,7 +42,14 @@ Phases, each printed with its elapsed seconds:
    at the sweep's shapes, Nt = 2, Ny = 2 and Nx % 4 != 0, single and as a
    lockstep batch whose pairs are each bitwise their single launches,
    and timed warm and cold at 320x240, 640x480 and B = 8 beside their
-   bytes bound and the plain stencils.  Cold times rotate over enough
+   bytes bound and the plain stencils; the flow extraction's two kernels
+   (``flow_from_potential`` on the card) bitwise its plain path at Nt 2,
+   3 and 16 on 2x2, 3x3 and 33x47 frames and at the sweep's two shapes,
+   float32 and float64, on drifts that leave the grid, single and as a
+   batch of 8 whose pairs are each bitwise their single calls (one call
+   for the batch), timed warm and cold at 320x240, 640x480 and B = 8
+   beside their bytes bound, the plain path's device time and the host
+   walls of both.  Cold times rotate over enough
    sets to pass the L2 and run back to back behind a spin kernel
    (``queued_times``), every kernel record counted;
 8. paths: the CLI at 320x240 on the same pair, each path with every launch
@@ -208,7 +215,11 @@ launches, replayed launches = the iteration slots of the replays that
 launched the kernel (replays x K), and iterations <= slots <= iterations
 + (K - 1) a loop.  Host loops (phase 17's ``--loop host`` run, phase 19's
 host runs, the tiled and GSPMD loops of phase 18) keep launches =
-iterations.
+iterations.  The flow extraction after a loop launches its kernels
+``LAUNCHES_A_CALL`` times a call: once a FOTO or WFR pair (the CLI, map
+mode, the examples' solves), once a lockstep batch; paths that extract
+nothing (the bench, the device-loop phase's loops, the tiled and GSPMD
+ranks, entry()'s step) launch them 0 times.
 
 Kernel #3's working set (29-39 MB) fits the card's 50 MB L2, so phase 7
 times it a second time cold, rotating over four input and output sets
@@ -253,12 +264,13 @@ from ofot_tpu_torch.ops import kernels
 from ofot_tpu_torch.ops.kernels import _build
 from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.ops.kernels import dct_solve as ds
+from ofot_tpu_torch.ops.kernels import flow_extract as fx
 from ofot_tpu_torch.ops.kernels import loop_mask as lm
 from ofot_tpu_torch.ops.kernels import projection as pk
 from ofot_tpu_torch.ops.kernels import stencil_st as ss
 from ofot_tpu_torch.ops import operators
-from ofot_tpu_torch.solvers import (dct, device_loop, foto, gn, hs, pyramid,
-                                    sinkhorn, wfr)
+from ofot_tpu_torch.solvers import (dct, device_loop, flow_extract, foto, gn,
+                                    hs, pyramid, sinkhorn, wfr)
 from ofot_tpu_torch.utils import flo, image, metrics
 
 SEED = 0
@@ -479,10 +491,10 @@ def device_time_ms(fn, calls: int = 20, windows: int = 5,
 SPIN_CYCLES_PER_S = 2e9
 
 
-def queued_times(fn, calls: int, windows: int = 5):
-    """(event ms, device ms) of one ``fn()``, a call that launches one
-    kernel, when ``calls`` calls run back to back on the card; medians over
-    ``windows`` windows.
+def queued_times(fn, calls: int, windows: int = 5, kernels_a_call: int = 1):
+    """(event ms, device ms) of one ``fn()``, a call that launches
+    ``kernels_a_call`` kernels, when ``calls`` calls run back to back on
+    the card; medians over ``windows`` windows.
 
     Each window queues its calls behind a spin kernel
     (``torch.cuda._sleep``) that lasts until the host has enqueued them
@@ -491,7 +503,7 @@ def queued_times(fn, calls: int, windows: int = 5):
     end, and anything a call leaves to the memory system (the write-back
     of its dirty outputs from L2) falls inside the next calls.  The device
     time is the mean of the kernels the profiler recorded, without the
-    spin (see ``device_time_ms``).  A window whose spin ended before the
+    spin (see ``device_time_ms``), times ``kernels_a_call``.  A window whose spin ended before the
     host had queued every call is taken again with a spin twice as
     long."""
     from torch.profiler import ProfilerActivity, profile
@@ -515,8 +527,8 @@ def queued_times(fn, calls: int, windows: int = 5):
             spin_s *= 2
         elif n > 0:
             ev.append(start.elapsed_time(end) / calls)
-            dev.append(us / 1e3 / n)
-            short += n < calls
+            dev.append(us / 1e3 / n * kernels_a_call)
+            short += n < calls * kernels_a_call
         if len(ev) == windows:
             if short:
                 _log(f"  {short} of {windows} queued windows recorded fewer "
@@ -806,9 +818,9 @@ def check_projection(device, mem_bw, f32_rate):
     return worst, timings
 
 
-def cold_times(make_enqueue, nbytes):
-    """Event and device times of a one-kernel call whose working set
-    (``nbytes``) fits in L2, measured cold: each call takes the next of
+def cold_times(make_enqueue, nbytes, kernels_a_call=1):
+    """Event and device times of a call of ``kernels_a_call`` kernels whose
+    working set (``nbytes``) fits in L2, measured cold: each call takes the next of
     enough input and output sets (``make_enqueue(i)`` binds set i) that the
     data moved between two uses of one set exceeds the L2 at least twice
     over, and the calls run back to back behind a spin (``queued_times``),
@@ -825,7 +837,8 @@ def cold_times(make_enqueue, nbytes):
 
     for _ in range(sets):
         fn()
-    cold_ms, cold_device_ms = queued_times(fn, calls=5 * sets)
+    cold_ms, cold_device_ms = queued_times(fn, calls=5 * sets,
+                                           kernels_a_call=kernels_a_call)
     return dict(cold_ms=cold_ms, cold_device_ms=cold_device_ms,
                 cold_sets=sets)
 
@@ -1192,6 +1205,147 @@ def check_loop_mask(device, mem_bw, f32_rate):
     return out
 
 
+# The flow extraction's kernels (phase 7): bitwise the plain path at Nt 2,
+# 3 and 16 on 2x2, 3x3 and 33x47 frames and at the sweep's two shapes, in
+# float32 and float64, on drifts that leave the grid, single and as a
+# lockstep batch whose pairs are each bitwise their single calls; timed
+# warm and cold at FLOW_TIMED beside their bytes bound, the plain path's
+# device time and both host walls
+FLOW_SHAPES = tuple((nt, ny, nx) for nt in (2, 3, 16)
+                    for ny, nx in ((2, 2), (3, 3), (33, 47))) \
+    + (SHAPE, (16, 480, 640))
+FLOW_TIMED = ((SHAPE, None), ((16, 480, 640), None), (SHAPE, 8))
+FLOW_KERNELS = ("flow_trajectories_kernel", "flow_divergence_kernel")
+
+
+def flow_potential(shape, device, seed, batch=None, dtype=torch.float32,
+                   scale=3.0):
+    """A potential of ``shape`` (with a leading pair axis of ``batch``): a
+    drift of up to ``scale`` px a step in each slice, plus noise, so that
+    trajectories leave the grid, hit the clamp and carry offsets outside
+    [0, 1)."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    y, x = np.mgrid[0:shape[1], 0:shape[2]]
+    drift = rng.uniform(-1, 1, lead + (shape[0], 1, 1)) * x \
+        + rng.uniform(-1, 1, lead + (shape[0], 1, 1)) * y
+    phi = scale * drift + 0.1 * rng.standard_normal(lead + shape)
+    return torch.from_numpy(phi).to(device, dtype)
+
+
+def flow_bytes(shape, batch):
+    """Bytes the flow extraction needs to move, float32: the Nt - 1 slices
+    of phi it reads once, and u, v and m written once."""
+    Nt, Ny, Nx = shape
+    return 4 * (batch or 1) * (Nt + 2) * Ny * Nx
+
+
+def kernel_means_ms(fn, names, calls: int = 20, windows: int = 5):
+    """Each named kernel's device time: the mean of its records in a
+    profile of ``calls`` back-to-back ``fn()``, median over ``windows``
+    windows, after 3 warm-up calls (a mean, since the profiler can drop
+    records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    means = {n: [] for n in names}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            hit = [n for n in names if n in e.key]
+            if e.device_type == DeviceType.CUDA and hit and e.count:
+                means[hit[0]].append(e.self_device_time_total / e.count / 1e3)
+    if not all(means.values()):
+        raise RuntimeError(f"the profiler recorded none of {names}")
+    return {n: statistics.median(v) for n, v in means.items()}
+
+
+def host_wall_ms(fn, samples: int = 20) -> float:
+    """Median host wall of one ``fn()`` ended by a synchronise, after 3
+    warm-up calls: what a caller that waits for the result pays."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def check_flow_extract(device, mem_bw, f32_rate):
+    """Phase 7, the flow extraction: the kernels bitwise the plain path,
+    repeat calls bitwise, each pair of a batch bitwise its single call and
+    one call of ``fx.LAUNCHES_A_CALL`` launches for the batch; warm and
+    cold times beside the bytes bound, the plain path's device time and
+    the host walls of both."""
+    for shape in FLOW_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            for batch in (None, LOCKSTEP_B):
+                phi = flow_potential(shape, device, SEED + 60, batch, dtype)
+                reset_counts()
+                got = flow_extract.flow_from_potential(phi)
+                one_call = (kernels.launch_counts()["flow_extract"]
+                            == fx.LAUNCHES_A_CALL)
+                plain = all(map(_same_bits, got,
+                                flow_extract.flow_from_potential_reference(
+                                    phi)))
+                same = all(map(_same_bits, got,
+                               flow_extract.flow_from_potential(phi)))
+                for i in range(batch or 0):
+                    same &= all(_same_bits(g[i], w) for g, w in zip(
+                        got, flow_extract.flow_from_potential(phi[i])))
+                if not (plain and same and one_call):
+                    raise AssertionError(
+                        f"flow extraction {shape} {dtype} batch {batch}: "
+                        f"bitwise the plain path {plain}, repeats / pairs "
+                        f"bitwise {same}, one call's launches {one_call}")
+    _log(f"  flow extraction: bitwise the plain path and its repeats at "
+         f"{len(FLOW_SHAPES)} shapes, float32 and float64, single and "
+         f"batch {LOCKSTEP_B} (each pair bitwise its single call; "
+         f"{fx.LAUNCHES_A_CALL} launches a call)")
+    out = {}
+    for shape, batch in FLOW_TIMED:
+        phi = flow_potential(shape, device, SEED + 70, batch)
+        nbytes = flow_bytes(shape, batch)
+        enqueue = fx.prepare_flow(phi)[0]
+
+        def plain():
+            return flow_extract.flow_from_potential_reference(phi)
+
+        parts = kernel_means_ms(enqueue, FLOW_KERNELS)
+        rec = dict(ms=cuda_time_ms(enqueue), device_ms=sum(parts.values()),
+                   plain_ms=cuda_time_ms(plain, samples=5, calls=5),
+                   plain_device_ms=device_time_ms(plain, calls=5, windows=3),
+                   wall_ms=host_wall_ms(
+                       lambda: flow_extract.flow_from_potential(phi)),
+                   plain_wall_ms=host_wall_ms(plain, samples=5),
+                   **{f"{n}_ms": t for n, t in parts.items()})
+        rec.update(cold_times(lambda i: fx.prepare_flow(flow_potential(
+            shape, device, SEED + 80 + i, batch))[0], nbytes,
+            kernels_a_call=fx.LAUNCHES_A_CALL))
+        bound_ms, bound_by = bound(nbytes, 0, mem_bw, f32_rate)
+        label = f"flow extraction {shape} batch {batch}"
+        _timing_line(label, rec, bound_ms, bound_by, nbytes, 0,
+                     extra=" (" + ", ".join(f"{n} {t:.4f}" for n, t in
+                                            parts.items()) + ")")
+        _log(f"  {label} cold: {rec['cold_ms']:.4f} ms by events, "
+             f"{rec['cold_device_ms']:.4f} ms device over "
+             f"{rec['cold_sets']} rotating sets ("
+             f"{100 * bound_ms / rec['cold_device_ms']:.1f}% of bound); "
+             f"host wall of a call {rec['wall_ms']:.4f} ms, the plain "
+             f"path's {rec['plain_wall_ms']:.4f} ms")
+        out[(shape, batch)] = dict(rec, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
 def launch_floor_ms(device) -> float:
     """The device time of the smallest launch: one in-place add to a
     one-element tensor, by ``device_time_ms`` (the kernels' own method)."""
@@ -1233,9 +1387,10 @@ def write_pair(workdir: Path):
 
 
 def run_cli_path(workdir: Path, label: str, args, expect):
-    """The CLI on the pair with every launch count set to 0 just before and
-    read just after; ``expect(iterations, cg_steps)`` gives the launches
-    each kernel must show.  Returns the run's record."""
+    """The CLI's FOTO or WFR solve of the pair with every launch count set
+    to 0 just before and read just after; ``expect(iterations, cg_steps)``
+    gives the launches each loop kernel must show, and the solve's one
+    flow extraction its kernels' launches.  Returns the run's record."""
     p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
     d = workdir / label
     d.mkdir()
@@ -1258,7 +1413,7 @@ def run_cli_path(workdir: Path, label: str, args, expect):
     if not iterations > 0:
         raise AssertionError(f"{label}: no ALG2 iteration ran")
     check_launches(label, launches, expect(iterations, cg_steps),
-                   loops=device_loop.stats)
+                   loops=device_loop.stats, extractions=1)
     if not np.isfinite(crit):
         raise AssertionError(f"{label}: the solve ended on a NaN criterion")
     return dict(iterations=iterations, cg_steps=cg_steps, crit=crit,
@@ -1278,10 +1433,12 @@ def reset_counts() -> None:
 LOOP_MASK = ("select_scalars", "latch_fields")
 
 
-def check_launches(label, launches, expect, loops=None):
+def check_launches(label, launches, expect, loops=None, extractions=0):
     """``expect`` gives, per kernel, the launches of the host loop: the
-    iterations (or CG steps) that launch it once each; every other kernel
-    must launch 0 times.  With ``loops`` (the device loop's statistics of
+    iterations (or CG steps) that launch it once each; the flow
+    extraction's kernels launch ``fx.LAUNCHES_A_CALL`` times for each of
+    ``extractions`` calls (one a FOTO or WFR pair, one a lockstep batch);
+    every other kernel must launch 0 times.  With ``loops`` (the device loop's statistics of
     the run), a kernel that captured graphs launched is held to the replay
     relation instead: launches = warm-up launches + replayed launches,
     replayed launches = the iteration slots of the replays that launched
@@ -1291,7 +1448,7 @@ def check_launches(label, launches, expect, loops=None):
     ``loops.latch_slots``; without ``loops`` they are not checked."""
     want = {k: 0 for k in kernels.KERNELS
             if loops is not None or k not in LOOP_MASK}
-    want.update(expect)
+    want.update(expect, flow_extract=fx.LAUNCHES_A_CALL * extractions)
     replayed = {} if loops is None else loops.graph_launches
     bad = []
     if loops is not None and replayed.get("latch_fields", 0) \
@@ -1553,7 +1710,8 @@ def run_variational_path(workdir: Path, label: str, args):
 
 def run_gn_hs_paths(workdir: Path):
     """Phase 11: GN, GN pyramid, HS and FOTO dct-refined through the CLI;
-    none launches a kernel."""
+    none launches a loop kernel (FOTO's flow extraction launches its
+    own)."""
     paths = {
         "gn": run_variational_path(workdir, "gn", GN_ARGS),
         "gn-pyramid": run_variational_path(
@@ -2096,9 +2254,10 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch,
                 lockstep=False):
     """Every artifact, manifest key and bound of one sweep; the ``pallas``
     set's kernels launched once per FOTO and WFR ALG2 iteration
-    (``pallas_launches``), no other (a lockstep batch: once per iteration
-    of each group's slowest pair); returns the ALG2 iterations by
-    algorithm."""
+    (``pallas_launches``), the flow extraction's once a FOTO or WFR pair,
+    no other (a lockstep batch: once per iteration of each group's
+    slowest pair, and the extraction once a group); returns the ALG2
+    iterations by algorithm."""
     if sorted(manifest) != sorted(seqs):
         raise AssertionError(f"{label}: manifest rows {sorted(manifest)}")
     alg2_iterations, ees, escalated = {"foto": 0, "WFR": 0}, {}, []
@@ -2172,13 +2331,16 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch,
                                      f"error {row['marginal_error']}")
     _log(f"  {label}: EE / zero flow's EE on the ground-truth sequences "
          f"{ees}; re-solved with the exact softmin: {escalated}")
+    extractions = sum(algo in ("foto", "WFR") for algo in SWEEP_ALGOS) \
+        * len(seqs)
     if lockstep:
         alg2_iterations = {algo: sum(n for g, n in group_iterations.items()
                                      if g[0] == algo)
                            for algo in alg2_iterations}
+        extractions = len(group_iterations)
     check_launches(label, launches, pallas_launches(
         alg2_iterations["foto"], alg2_iterations["WFR"]),
-        loops=device_loop.stats)
+        loops=device_loop.stats, extractions=extractions)
     return alg2_iterations
 
 
@@ -2582,7 +2744,7 @@ def lockstep_solves():
             check_launches(f"lockstep {algo}", launches,
                            pallas_launches(max(its)) if algo == "foto"
                            else pallas_launches(0, max(its)),
-                           loops=device_loop.stats)
+                           loops=device_loop.stats, extractions=1)
             cap = kw[f"{'foto' if algo == 'foto' else 'wfr'}_params"][
                 "max_it"]
         else:
@@ -2652,7 +2814,7 @@ def lockstep_other_sets():
     u, v, m, d, s, launches = _timed_batch("foto", a, b, kw, "vmap")
     its = check("lockstep dct-fused", u, v, m, d, a, b, 200)
     check_launches("lockstep dct-fused", launches, {"dct_solve": max(its)},
-                   loops=device_loop.stats)
+                   loops=device_loop.stats, extractions=1)
     _log(f"  lockstep foto dct-fused B={LOCKSTEP_SETS_B}: iterations {its}, "
          f"launches {launches}, {s:.4f} s")
     out["dct-fused"] = dict(iterations=its, launches=launches, seconds=s)
@@ -2676,7 +2838,7 @@ def lockstep_other_sets():
     its = check("lockstep cg-pallas", u, v, m, d, a, b, None)
     check_launches("lockstep cg-pallas", launches,
                    {"cg_operator_blocked": sum(steps)},
-                   loops=device_loop.stats)
+                   loops=device_loop.stats, extractions=1)
     _log(f"  lockstep foto cg-pallas B={LOCKSTEP_SETS_B}, max-it cut to "
          f"{LOCKSTEP_CG_PALLAS_MAX_IT} (the pipeline's 200): iterations "
          f"{its}, per-pair CG steps {d['inner_iterations'].tolist()}, "
@@ -2689,7 +2851,7 @@ def lockstep_other_sets():
     u, v, m, d, s, launches = _timed_batch("foto", f1s, f2s, kw, "vmap")
     its = check("lockstep auto_r", u, v, m, d, f1s, f2s, None)
     check_launches("lockstep auto_r", launches, pallas_launches(max(its)),
-                   loops=device_loop.stats)
+                   loops=device_loop.stats, extractions=1)
     _log(f"  lockstep foto auto_r B={LOCKSTEP_B}: iterations {its}, "
          f"launches {launches}, {s:.4f} s")
     out["auto_r"] = dict(iterations=its, launches=launches, seconds=s)
@@ -3403,6 +3565,9 @@ def device_loop_phase(rho):
 
 EXAMPLES = ("quickstart", "unbalanced_flow", "wasserstein",
             "differentiable_ot", "sharded_solve")
+# the flow extractions of each example's card run: quickstart's FOTO solve,
+# unbalanced_flow's FOTO and WFR solves; the others extract none
+EXAMPLE_EXTRACTIONS = {"quickstart": 1, "unbalanced_flow": 2}
 # card against CPU, per returned number: a relative tolerance, or
 # ("count", n) for a count within n; the CPU tests' bounds
 # (tests/test_torch_examples.py): 1e-3, WFR 2%, the float32 Sinkhorn
@@ -3597,7 +3762,8 @@ def examples_phase(workdir: Path):
             loops = None
         expect = (pallas_launches(0, res["wfr_iterations"])
                   if name == "unbalanced_flow" else {})
-        check_launches(f"example {name}", launches, expect, loops=loops)
+        check_launches(f"example {name}", launches, expect, loops=loops,
+                       extractions=EXAMPLE_EXTRACTIONS.get(name, 0))
         if name == "w2_gradient_flow":
             if not all(b < a for a, b in zip(res, res[1:])):
                 bad.append(f"{name}: S not strictly decreasing: {res}")
@@ -3784,10 +3950,13 @@ def graft_entry_phase():
         # map mode launches #1 once an iteration of each pair, a lockstep
         # batch its batched form once an iteration of its slowest pair (a
         # rehearsal with CARD = "cpu" runs the plain versions: none)
+        # map mode extracts each pair's flow, a lockstep batch all at once
+        batch = leg in GRAFT_KERNEL_LEGS and CARD == "cuda"
         expect = (pallas_launches(sum(its) if leg == "map" else max(its))
-                  if leg in GRAFT_KERNEL_LEGS and CARD == "cuda" else {})
+                  if batch else {})
         check_launches(f"dryrun_multichip(1) {leg}", got, expect,
-                       loops=loops)
+                       loops=loops, extractions=batch and (
+                           len(its) if leg == "map" else 1))
     _log(f"  (b) dryrun_multichip(1) on {CARD}: every leg's assertions "
          f"passed, {wall:.2f} s with the rank's start-up")
     return {leg: res[leg]["launches"]["fused_pointwise"]
@@ -3848,6 +4017,7 @@ def main() -> int:
             tile_rec = check_cg_operator_tile(device, mem_bw, f32_rate)
             stencil_recs = check_stencil_st(device, mem_bw, f32_rate)
             check_loop_mask(device, mem_bw, f32_rate)
+            flow_recs = check_flow_extract(device, mem_bw, f32_rate)
 
         with Phase("8 paths"):
             paths = run_paths(workdir)
@@ -4023,6 +4193,15 @@ def main() -> int:
           for name, kernel in (("grad_st", "stencil_grad_st"),
                                ("stepA_rhs", "stencil_stepA_rhs"))
           for shape, batch in STENCIL_TIMED],
+        # the flow extraction replaces no TPU kernel (XLA's in JAX);
+        # launches from the main path's FOTO solve and the lockstep FOTO
+        # run, one call each
+        *[{"name": "flow_extract", "route": "cuda",
+           "source": "ofot_tpu_torch/csrc/flow_extract.cu", "replaces": None,
+           "shape": list(shape), "batch": batch, "max_abs_err": 0.0,
+           "launches": (solve if batch is None else lock_solves["foto"])[
+               "launches"]["flow_extract"], **rec}
+          for (shape, batch), rec in flow_recs.items()],
     ]}
     _log(f"chip_smoke wall {time.time() - t_start:.2f} s")
     _log(smi)

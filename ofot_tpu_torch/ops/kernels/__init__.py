@@ -22,6 +22,7 @@ KERNELS = {
     "stencil_stepA_rhs": ("stencil_st", "stepA_rhs_launches"),
     "select_scalars": ("loop_mask", "select_launches"),
     "latch_fields": ("loop_mask", "latch_launches"),
+    "flow_extract": ("flow_extract", "launches"),
 }
 
 

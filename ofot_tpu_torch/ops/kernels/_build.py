@@ -162,6 +162,10 @@ def load_library() -> ctypes.CDLL:
             vp, vp, c_int, c_int,             # run nxt pairs nfields
             vps, vps,                         # src held (pointer arrays)
             ctypes.POINTER(c_ll), vp],        # segment bytes, stream
+        "ofot_flow_extract": [
+            vp, vp, vp, vp,                   # phi u v m
+            c_int, c_int, c_int, c_int,       # batch Nt Ny Nx
+            c_int, vp],                       # is_double stream
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

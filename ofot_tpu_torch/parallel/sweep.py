@@ -123,11 +123,10 @@ def _map_pairs(one, f1s, f2s):
 
 
 def _flows(phi):
-    """Flow extraction of a (B, Nt, Ny, Nx) potential, pair by pair (it
-    runs once a pair) -> stacked (u, v, m).  Span ``lockstep.extract``."""
+    """Flow extraction of a (B, Nt, Ny, Nx) potential, one call for the
+    batch -> (u, v, m), each (B, Ny, Nx).  Span ``lockstep.extract``."""
     with trace.annotate("lockstep.extract"):
-        outs = [flow_extract.flow_from_potential(p) for p in phi]
-        return tuple(torch.stack(f) for f in zip(*outs))
+        return flow_extract.flow_from_potential(phi)
 
 
 def _diag(**fields):

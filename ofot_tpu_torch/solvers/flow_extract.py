@@ -16,6 +16,11 @@ The cell index is ``int(x)`` — truncation toward zero — then clamped to
 [0, N-2], and the fractional offsets are taken w.r.t. the *clamped* corner
 (reference utils.py:64-71), so they may fall outside [0, 1) near the
 border; the bilinear weights use them as-is.
+
+:func:`flow_from_potential` is the one entry: CUDA tensors go to the
+kernels of ``ops/kernels/flow_extract.py`` (one call, two launches, for a
+pair or a batch; bitwise this module's plain path on the card), CPU
+tensors to the plain path here.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ofot_tpu_torch.ops import operators
+from ofot_tpu_torch.ops.kernels import flow_extract as kernel
 
 
 def velocities_from_potential(phi: torch.Tensor):
@@ -62,9 +68,23 @@ def integrate_trajectories(un: torch.Tensor, vn: torch.Tensor):
     return x - x0, y - y0
 
 
-def flow_from_potential(phi: torch.Tensor):
-    """phi (Nt, Ny, Nx) -> (u, v, m) displacement + luminosity fields."""
+def flow_from_potential_reference(phi: torch.Tensor):
+    """The plain path of :func:`flow_from_potential`, on any device; a
+    (B, Nt, Ny, Nx) batch pair by pair, stacked."""
+    if phi.dim() == 4:
+        return tuple(torch.stack(f) for f in
+                     zip(*map(flow_from_potential_reference, phi)))
     un, vn = velocities_from_potential(phi)
     u, v = integrate_trajectories(un, vn)
     m = -operators.div2d(u, v, bc="D")
     return u, v, m
+
+
+def flow_from_potential(phi: torch.Tensor):
+    """phi (Nt, Ny, Nx) -> (u, v, m) displacement + luminosity fields,
+    each (Ny, Nx); a (B, Nt, Ny, Nx) batch -> each (B, Ny, Nx).  CUDA
+    tensors: one kernel call (``kernel.flow``), which raises on what it
+    does not take; CPU tensors: the plain path."""
+    if phi.device.type == "cpu":
+        return flow_from_potential_reference(phi)
+    return kernel.flow(phi)

@@ -124,7 +124,8 @@ def test_cli_writes_all_foto_artifacts(frames, tmp_path, capsys):
                            "project_paraboloid", "cg_operator",
                            "cg_operator_blocked", "cg_operator_tile",
                            "stencil_grad_st", "stencil_stepA_rhs",
-                           "select_scalars", "latch_fields"}
+                           "select_scalars", "latch_fields",
+                           "flow_extract"}
     assert set(counts.values()) == {"0"} and "iterations=5" in out
 
 

@@ -46,6 +46,14 @@ per-pair scalars' select and the latch of a stopped pair's fields) are
 bitwise their plain versions at the loops' shapes, launch once each an
 iteration slot of every while loop, and leave no ``where`` kernel in a
 replayed FOTO block.
+
+The flow extraction's kernels (``ops/kernels/flow_extract.py``) are
+bitwise the plain path on random potentials (Nt 2, 3 and 16; frames 2x2,
+3x3 and 33x47, 320x240 and 640x480; float32 and float64; drifts that
+leave the grid) and on potentials solved from the benchmark's pools; a
+batch of 8 is one call, bitwise its 8 single calls; every call launches
+``LAUNCHES_A_CALL`` kernels, and a FOTO solve's extraction runs no
+``index``, ``trunc`` or ``clamp`` op.
 """
 
 import functools
@@ -89,12 +97,16 @@ def _assert_loop_mask_relation(launches):
     assert s.graph_launches.get("latch_fields", 0) == s.latch_slots
 
 
-def _assert_launch_relation(launches, expect):
+def _assert_launch_relation(launches, expect, extractions=0):
     """The device loop's launch relation for each kernel of ``expect``
     (kernel -> the iterations that launch it once each) and for its own
-    mask kernels, and no launch of any other kernel."""
+    mask kernels, the flow extraction's kernels launched by
+    ``extractions`` calls (one a pair, or one a lockstep batch), and no
+    launch of any other kernel."""
+    from ofot_tpu_torch.ops.kernels import flow_extract as fk
     from ofot_tpu_torch.solvers import device_loop
     s = device_loop.stats
+    assert launches["flow_extract"] == fk.LAUNCHES_A_CALL * extractions
     for kernel, iterations in expect.items():
         replayed = s.graph_launches.get(kernel, 0)
         assert launches[kernel] == s.eager_launches.get(kernel, 0) \
@@ -104,7 +116,7 @@ def _assert_launch_relation(launches, expect):
             kernel, 0), kernel
     _assert_loop_mask_relation(launches)
     assert sum(launches.values()) == sum(
-        launches[k] for k in {*expect, *LOOP_MASK})
+        launches[k] for k in {*expect, *LOOP_MASK, "flow_extract"})
 
 
 def _pallas_launches(foto_iterations, wfr_iterations=0):
@@ -612,7 +624,8 @@ def test_map_mode_bitwise_equals_single_pair_on_card(cuda_device):
     launches = kernels.launch_counts()
     assert u.device.type == "cuda"
     _assert_launch_relation(launches,
-                            _pallas_launches(int(diag["iterations"].sum())))
+                            _pallas_launches(int(diag["iterations"].sum())),
+                            extractions=3)
     for i in range(3):
         one = foto.solve(torch.as_tensor(f1s[i], device=cuda_device),
                          torch.as_tensor(f2s[i], device=cuda_device), 4,
@@ -661,7 +674,8 @@ def test_pipeline_run_on_card(cuda_device, tmp_path):
             == "pallas"
         foto_its += row["foto"]["iterations"]
         wfr_its += row["WFR"]["iterations"]
-    _assert_launch_relation(launches, _pallas_launches(foto_its, wfr_its))
+    _assert_launch_relation(launches, _pallas_launches(foto_its, wfr_its),
+                            extractions=4)
 
 
 @pytest.mark.cuda
@@ -782,7 +796,8 @@ def test_lockstep_solve_batch_full_on_card(cuda_device):
     u, v, m, d = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
                                         batch_mode="vmap", device="cuda")
     _assert_launch_relation(kernels.launch_counts(),
-                            _pallas_launches(int(d["iterations"].max())))
+                            _pallas_launches(int(d["iterations"].max())),
+                            extractions=1)
     um, vm, mm, dm = sweep.solve_batch_full("foto", a, b, foto_params=fp_,
                                             device="cuda")
     for i in range(3):
@@ -1195,3 +1210,156 @@ def test_replayed_foto_block_launches_no_where_on_card(cuda_device):
     slots = device_loop.stats.slots
     assert st.iteration <= slots and latch <= slots and select <= slots
     assert latch > 0 and select > 0
+
+
+# ------------------------------------------------------------ flow extraction
+
+# Nt 2, 3 and 16 on 2x2, 3x3 and 33x47 frames, and the cells' two sizes
+FLOW_SHAPES = [(nt, ny, nx) for nt in (2, 3, 16)
+               for ny, nx in ((2, 2), (3, 3), (33, 47))] \
+    + [(16, 240, 320), (16, 480, 640)]
+
+
+def _flow_potential(shape, dtype, scale, device, batch=None, seed=0):
+    """A random potential: a drift of up to ``scale`` px a step in each
+    slice, plus noise (3 px a step: trajectories leave the grid, hit the
+    clamp and carry offsets outside [0, 1))."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    Nt, Ny, Nx = shape
+    y, x = np.mgrid[0:Ny, 0:Nx]
+    drift = rng.uniform(-1, 1, lead + (Nt, 1, 1)) * x \
+        + rng.uniform(-1, 1, lead + (Nt, 1, 1)) * y
+    phi = scale * drift + 0.1 * rng.standard_normal(lead + shape)
+    return torch.from_numpy(phi).to(device, dtype)
+
+
+def _flow_launches():
+    from ofot_tpu_torch.ops import kernels
+    return kernels.launch_counts()["flow_extract"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.2, 3.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", FLOW_SHAPES)
+def test_flow_extract_kernel_is_bitwise_the_plain_path_on_card(
+        cuda_device, shape, dtype, scale):
+    """(u, v, m) of one call bitwise the plain path's on the card, repeat
+    calls bitwise, ``LAUNCHES_A_CALL`` launches a call."""
+    from ofot_tpu_torch.ops.kernels import flow_extract as fk
+    from ofot_tpu_torch.solvers import flow_extract
+    phi = _flow_potential(shape, dtype, scale, cuda_device)
+    _reset_counts()
+    got = flow_extract.flow_from_potential(phi)
+    assert _flow_launches() == fk.LAUNCHES_A_CALL
+    want = flow_extract.flow_from_potential_reference(phi)
+    again = flow_extract.flow_from_potential(phi)
+    for g, w, a in zip(got, want, again):
+        assert g.shape == shape[1:] and g.dtype == dtype
+        assert _same_bits(g, w) and _same_bits(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(16, 240, 320), (3, 33, 47)])
+def test_batched_flow_extract_is_bitwise_its_single_calls_on_card(
+        cuda_device, shape, dtype):
+    """A batch of 8: one call of ``LAUNCHES_A_CALL`` launches, each pair
+    bitwise its single call and the plain path."""
+    from ofot_tpu_torch.ops.kernels import flow_extract as fk
+    from ofot_tpu_torch.solvers import flow_extract
+    phi = _flow_potential(shape, dtype, 3.0, cuda_device, batch=8, seed=1)
+    _reset_counts()
+    got = flow_extract.flow_from_potential(phi)
+    assert _flow_launches() == fk.LAUNCHES_A_CALL
+    for g, w in zip(got, flow_extract.flow_from_potential_reference(phi)):
+        assert g.shape == (8,) + shape[1:] and _same_bits(g, w)
+    for b in range(8):
+        for g, w in zip(got, flow_extract.flow_from_potential(phi[b])):
+            assert _same_bits(g[b], w)
+    assert _flow_launches() == 9 * fk.LAUNCHES_A_CALL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic", ["mb1_320", "mb1_640"])
+def test_flow_extract_of_solved_pool_potentials_on_card(cuda_device,
+                                                        traffic):
+    """Potentials that FOTO solves at the benchmark's configuration from a
+    plain and a lum pair of the benchmark's pool: the kernel's (u, v, m)
+    bitwise the plain path's."""
+    import json
+    from pathlib import Path
+
+    from flowbench.traffic import generator
+    from ofot_tpu_torch.solvers import flow_extract, foto
+    root = Path(__file__).resolve().parents[1] / "flowbench"
+    cfg = json.loads((root / "configs" / "foto_sweep.json").read_text())
+    pool = generator.make_pool(json.loads(
+        (root / "traffic" / f"{traffic}.json").read_text()))
+    pairs = [next(p for p in pool if p.lum == lum) for lum in (False, True)]
+    for p in pairs:
+        a, b = (torch.as_tensor(f, device=cuda_device) for f in (p.f1, p.f2))
+        st = foto.solve_potential(
+            a, b, cfg["Nt"], r=cfg["r"],
+            convergence_tol=cfg["convergence_tol"],
+            reg_epsilon=cfg["reg_epsilon"], max_it=cfg["max_it"],
+            admm_alpha=cfg["admm_alpha"], ops=foto.stepA_ops("pallas"))
+        got = flow_extract.flow_from_potential(st.phi)
+        want = flow_extract.flow_from_potential_reference(st.phi)
+        assert all(map(_same_bits, got, want))
+
+
+@pytest.mark.cuda
+def test_foto_solve_extracts_through_the_kernel_on_card(cuda_device):
+    """A 320x240 FOTO solve (graph cached): its extraction launches the two
+    kernels once each and no ``index``, ``trunc`` or ``clamp`` op beyond
+    those of the loop alone."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+    from ofot_tpu_torch.solvers import foto
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+            for x in _texture_pair(240, 320))
+    kw = dict(r=1.0, convergence_tol=0.01, reg_epsilon=1e-2, max_it=40,
+              admm_alpha=1.7, ops=foto.stepA_ops("pallas"))
+    foto.solve(a, b, 16, **kw)                  # captures the graph
+    torch.cuda.synchronize()
+    ops = ("aten::index", "aten::trunc", "aten::clamp")
+    seen = []
+    for run in (foto.solve_potential, foto.solve):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(a, b, 16, **kw)
+            torch.cuda.synchronize()
+        names = Counter(e.name for e in prof.events())
+        seen.append(({k: names[k] for k in ops},
+                     sum(v for k, v in names.items()
+                         if "flow_trajectories_kernel" in k),
+                     sum(v for k, v in names.items()
+                         if "flow_divergence_kernel" in k)))
+    (loop_ops, *loop_kernels), (solve_ops, *solve_kernels) = seen
+    assert solve_ops == loop_ops
+    assert loop_kernels == [0, 0] and solve_kernels == [1, 1]
+
+
+@pytest.mark.cuda
+def test_flow_extract_kernel_rejects_bad_operands_on_card(cuda_device):
+    """Other dtypes, a frame axis of 1 and other ranks raise before any
+    launch; a non-contiguous potential is taken as its contiguous copy."""
+    from ofot_tpu_torch.ops.kernels import flow_extract as fk
+    from ofot_tpu_torch.solvers import flow_extract
+    phi = _flow_potential((4, 6, 8), torch.float32, 3.0, cuda_device)
+    _reset_counts()
+    with pytest.raises(TypeError):
+        fk.flow(phi.half())
+    with pytest.raises(ValueError):
+        fk.flow(phi[:, :1])
+    with pytest.raises(ValueError):
+        fk.flow(phi[None, None])
+    assert _flow_launches() == 0
+    t = phi.transpose(1, 2)
+    got = fk.flow(t)
+    want = flow_extract.flow_from_potential_reference(t.contiguous())
+    assert all(map(_same_bits, got, want))
+    assert _flow_launches() == fk.LAUNCHES_A_CALL
