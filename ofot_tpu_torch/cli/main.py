@@ -306,40 +306,36 @@ def _run_variational(args, rho1_d, rho2_d):
 
 def _run_sinkhorn(args, rho1_d, rho2_d):
     """Static entropic OT -> (device fields, host fields, solve end,
-    stats): one annealed Sinkhorn solve and its debiased barycentric
-    flow, with m = -div(u, v) ('D' boundary), the convention of the
-    dynamic extraction.  The ``auto`` stabilizer solves with the matmul
-    softmin first and re-solves with the exactly-stabilized one when the
-    (verified) marginal error misses the tolerance; the negated
-    ``<=`` test also catches a NaN error.  After the solve: the max-it
-    warning and, unless --quiet or with --log-jsonl, the debiased W2 from
-    one more annealed b->b self-solve."""
-    from ofot_tpu_torch.ops import operators
+    stats): ``sinkhorn.solve_fields``, one annealed Sinkhorn solve and its
+    debiased barycentric flow, with m = -div(u, v) ('D' boundary), the
+    convention of the dynamic extraction.  The ``auto`` stabilizer solves
+    with the matmul softmin first and re-solves with the
+    exactly-stabilized one when the (verified) marginal error misses the
+    tolerance; the negated ``<=`` test also catches a NaN error.  After
+    the solve: the max-it warning and, unless --quiet or with
+    --log-jsonl, the debiased W2 from one more annealed b->b
+    self-solve."""
     from ofot_tpu_torch.solvers import sinkhorn
 
     eps, tol = args.sinkhorn_epsilon, args.sinkhorn_tol
     kw = dict(max_iter=args.max_it, tol=tol, theta=args.sinkhorn_theta)
-    stab = "exact" if args.sinkhorn_stabilizer == "exact" else "matmul"
-    res = sinkhorn.flow(rho1_d, rho2_d, eps, stabilizer=stab, **kw)
-    me_matmul = None
-    if args.sinkhorn_stabilizer == "auto" and not bool(
-            res.marginal_error <= tol):
-        print(f"  marginal error {float(res.marginal_error):.3g} > "
-              f"tol {tol:g} on the matmul-softmin path "
-              "— re-solving with the exactly-stabilized softmin",
-              flush=True)
-        me_matmul = float(res.marginal_error)
-        stab = "exact"
-        res = sinkhorn.flow(rho1_d, rho2_d, eps, stabilizer=stab, **kw)
-    fields = (res.u, res.v, -operators.div2d(res.u, res.v, bc="D"))
+
+    out = sinkhorn.solve_fields(rho1_d, rho2_d, eps,
+                                stabilizer=args.sinkhorn_stabilizer, **kw)
+    res, stab = out.flow, out.stabilizer
+    fields = (out.u, out.v, out.m)
     host = _host(fields)
     solve_end = time.time()
+    if out.marginal_error_matmul is not None:
+        print(f"  marginal error {out.marginal_error_matmul:.3g} > "
+              f"tol {tol:g} on the matmul-softmin path "
+              "— re-solving with the exactly-stabilized softmin")
 
     stats = {"iterations": res.iterations,
              "marginal_error": float(res.marginal_error),
              "epsilon": eps, "stabilizer": stab}
-    if me_matmul is not None:
-        stats["marginal_error_matmul"] = me_matmul
+    if out.marginal_error_matmul is not None:
+        stats["marginal_error_matmul"] = out.marginal_error_matmul
     print(f"solver: iterations={res.iterations} "
           f"marginal_error={stats['marginal_error']} stabilizer={stab}")
     if not bool(res.marginal_error <= tol):

@@ -45,6 +45,15 @@ select included, is one replay of a captured graph
 block; the annealing ladder stays on the host.  ``flow`` is eager (``jax.jit`` with a
 static epsilon in JAX), so ``theta`` is always range-checked.
 
+:func:`solve_fields` is the one pair's solve as the CLI runs it (the
+``auto`` stabilizer, the flow and m).  Spans (``utils/trace.py``):
+``sinkhorn.solve`` > ``sinkhorn.loop`` (each stage's block loop, ended by
+the read of its final state), ``sinkhorn.verify`` (the exact re-check of
+the final marginals) and ``sinkhorn.extract``; counters
+``sinkhorn.iterations`` (every iteration of every stage, solve and
+stabilizer), ``sinkhorn.exact_iterations`` (those of the exact softmin)
+and ``sinkhorn.escalations`` (pairs ``auto`` solved again).
+
 ``solve``, ``solve_annealed`` and ``flow`` also take (B, Ny, Nx) stacks: a
 lockstep batch (JAX's ``vmap`` of them).  Every product, softmin and
 reduction then runs over the batch at once, each pair keeps its own
@@ -62,7 +71,9 @@ from typing import NamedTuple
 
 import torch
 
+from ofot_tpu_torch.ops import operators
 from ofot_tpu_torch.solvers import device_loop as _loop
+from ofot_tpu_torch.utils import trace
 
 
 class SinkhornResult(NamedTuple):
@@ -84,6 +95,21 @@ class FlowResult(NamedTuple):
     # when debias=False (no self-solve was run)
     cost_ab: torch.Tensor
     cost_aa: torch.Tensor
+
+
+class FieldsResult(NamedTuple):
+    """What the CLI writes of one pair (see :func:`solve_fields`)."""
+    u: torch.Tensor
+    v: torch.Tensor
+    m: torch.Tensor               # -div(u, v), 'D' boundary
+    flow: FlowResult              # of the stabilizer that gave the answer
+    stabilizer: str               # "matmul" or "exact"
+    # the matmul run's verified marginal error where ``auto`` re-solved,
+    # else None
+    marginal_error_matmul: float | None
+    # the final stages' own counts: the a->b solve and the a->a self-solve
+    iterations_ab: int
+    iterations_aa: int
 
 
 class DivergenceResult(NamedTuple):
@@ -252,6 +278,15 @@ def _check_theta(theta) -> float:
     return theta
 
 
+def iteration(f, g, la, lb, theta, softmin):
+    """One over-relaxed dual update of both potentials,
+    ``f <- (1-theta) f + theta (la - softmin(g))``, then g from the new f.
+    """
+    f = (1.0 - theta) * f + theta * (la - softmin(g))
+    g = (1.0 - theta) * g + theta * (lb - softmin(f))
+    return f, g
+
+
 def solve(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
           max_iter: int = 500, tol=1e-4, check_every: int = 25,
           init_f: torch.Tensor | None = None,
@@ -331,8 +366,7 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
             a, b, la, lb = data
             f_new, g_new = f, g
             for _ in range(n):
-                f_new = (1.0 - th) * f_new + th * (la - softmin(g_new))
-                g_new = (1.0 - th) * g_new + th * (lb - softmin(f_new))
+                f_new, g_new = iteration(f_new, g_new, la, lb, th, softmin)
             # both plan marginals: the over-relaxed iteration can satisfy
             # a and miss b
             err_a = _grid_sum(torch.abs(
@@ -362,25 +396,29 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
     key = ("sinkhorn", stabilizer, float(epsilon), theta, float(tol))
     runner = None
     it = 0
-    while it < max_iter:
-        # the last block capped at the remaining budget
-        n = min(check_every, max_iter - it)
-        if not device_form:
-            state, (running,) = check_block(n)(state, data)
-        else:
-            if runner is None or runner.iters != n:
-                if runner is not None:
-                    state = runner.result()
-                runner = _loop.runner(check_block(n), state, data,
-                                      key=(key, n), iters=n,
-                                      warmup=check_block(1))
-            (running,) = runner.replay()
-        it += n
-        # the one read of a block: the JAX while_loop's condition
-        if not bool(running):
-            break
-    if runner is not None:
-        state = runner.result()
+    with trace.annotate("sinkhorn.loop"):
+        while it < max_iter:
+            # the last block capped at the remaining budget
+            n = min(check_every, max_iter - it)
+            if not device_form:
+                state, (running,) = check_block(n)(state, data)
+            else:
+                if runner is None or runner.iters != n:
+                    if runner is not None:
+                        state = runner.result()
+                    runner = _loop.runner(check_block(n), state, data,
+                                          key=(key, n), iters=n,
+                                          warmup=check_block(1))
+                (running,) = runner.replay()
+            it += n
+            # the one read of a block: the JAX while_loop's condition
+            if not bool(running):
+                break
+        if runner is not None:
+            state = runner.result()
+    trace.count("sinkhorn.iterations", it)
+    if stabilizer == "exact":
+        trace.count("sinkhorn.exact_iterations", it)
     f, g, err, its, _, _ = state
 
     # entropic cost <P, C>, gauge-free: sum_i a_i E_i with E_i the plan
@@ -406,11 +444,12 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
         # so that a silent matmul-softmin failure (a small iteration error
         # for a garbage plan past the exp window) surfaces as
         # marginal_error >> tol
-        err_a = _grid_sum(torch.abs(torch.exp(
-            (f + _exact_stats(g, eps, want_means=False)) / eps) - a))
-        err_b = _grid_sum(torch.abs(torch.exp(
-            (g + _exact_stats(f, eps, want_means=False)) / eps) - b))
-        err = torch.maximum(err, torch.maximum(err_a, err_b))
+        with trace.annotate("sinkhorn.verify"):
+            err_a = _grid_sum(torch.abs(torch.exp(
+                (f + _exact_stats(g, eps, want_means=False)) / eps) - a))
+            err_b = _grid_sum(torch.abs(torch.exp(
+                (g + _exact_stats(f, eps, want_means=False)) / eps) - b))
+            err = torch.maximum(err, torch.maximum(err_a, err_b))
     return SinkhornResult(cost=cost, f=f, g=g, marginal_error=err,
                           iterations=its if pairs else int(its))
 
@@ -469,65 +508,138 @@ def flow(a: torch.Tensor, b: torch.Tensor, epsilon=4.0, *,
         T(i) = E_{j ~ P(· | i)} [ (y'_j, x'_j) ],    (u, v) = T(i) - i.
 
     Both components come from the same gauge-free two-stage matmul ratio
-    as the cost (:func:`_plan_row_stats`).  Displacement is zeroed where
-    the source density is below ``support_floor * max(a)`` or where the
-    stabilized denominator underflowed.
+    as the cost (:func:`_plan_row_stats`), and where its stabilized
+    denominator underflowed from the exact statistics of the same
+    potential (:func:`_exact_stats`; the JAX package zeroes the
+    displacement there).  Displacement is zeroed where the source density
+    is below ``support_floor * max(a)``.
 
     ``debias=True`` subtracts the self-plan's barycentric map ``T_aa``
     instead of the raw grid, which cancels the entropic blur's contraction
     toward the mass center to first order.  ``iterations`` is the larger
-    of the a->b and a->a solves' counts.
+    of the a->b and a->a solves' counts.  Span ``sinkhorn.extract`` around
+    the barycentric maps and the support, after both solves.
     """
+    kw = dict(max_iter=max_iter, tol=tol, check_every=check_every,
+              theta=theta, stabilizer=stabilizer, loop=loop)
+    with _f32_matmul(a.device):
+        res, self_res = _flow_solves(a, b, epsilon, anneal=anneal,
+                                     debias=debias, **kw)
+        with trace.annotate("sinkhorn.extract"):
+            return _flow_extract(a, res, self_res, epsilon,
+                                 stabilizer=stabilizer,
+                                 support_floor=support_floor)
+
+
+def _flow_solves(a, b, epsilon, *, anneal, debias, **kw):
+    """The solves of :func:`flow`: a->b, and a->a where ``debias`` (else
+    None)."""
+    _solve = solve_annealed if anneal else solve
+    res = _solve(a, b, epsilon, **kw)
+    return res, (_solve(a, a, epsilon, **kw) if debias else None)
+
+
+def _flow_extract(a, res, self_res, epsilon, *, stabilizer,
+                  support_floor) -> FlowResult:
+    """The barycentric flow of :func:`flow` from its solves (``self_res``
+    None: no debiasing, the raw grid subtracted)."""
     dtype, device = a.dtype, a.device
     eps = torch.as_tensor(epsilon, dtype=dtype, device=device)
     Ny, Nx = a.shape[-2:]
     an = a / _grid_sum(a, keepdim=True)
-    _solve = solve_annealed if anneal else solve
-    kw = dict(max_iter=max_iter, tol=tol, check_every=check_every,
-              theta=theta, stabilizer=stabilizer, loop=loop)
-    with _f32_matmul(device):
-        res = _solve(a, b, epsilon, **kw)
-        Ky = _gibbs_1d(Ny, eps, dtype, device)
-        Kx = _gibbs_1d(Nx, eps, dtype, device)
-        tiny = _tiny(dtype, device)
-        # target-coordinate weights: Wy = y' (on the y axis), Wx = x'
-        jy = torch.arange(Ny, dtype=dtype, device=device)[None, :]
-        jx = torch.arange(Nx, dtype=dtype, device=device)[None, :]
-        pairs = [(Ky * jy, Kx), (Ky, Kx * jx)]
+    Ky = _gibbs_1d(Ny, eps, dtype, device)
+    Kx = _gibbs_1d(Nx, eps, dtype, device)
+    tiny = _tiny(dtype, device)
+    # target-coordinate weights: Wy = y' (on the y axis), Wx = x'
+    jy = torch.arange(Ny, dtype=dtype, device=device)[None, :]
+    jx = torch.arange(Nx, dtype=dtype, device=device)[None, :]
+    pairs = [(Ky * jy, Kx), (Ky, Kx * jx)]
 
-        def bary(g):
-            if stabilizer == "exact":
-                # well-defined for every row (the nearest mass dominates)
-                _, ty, tx, _ = _exact_stats(g, eps, want_means=True)
-                return ty, tx, torch.ones_like(ty, dtype=torch.bool)
-            den, (numY, numX) = _plan_row_stats(g, eps, Ky, Kx, pairs, tiny)
-            safe = torch.maximum(den, tiny)
-            # den underflow: the ratio there is denormal noise up to inf
-            ok = den > _den_floor(dtype, device)
-            return numY / safe, numX / safe, ok
+    support = an > support_floor * torch.amax(an, dim=(-2, -1),
+                                              keepdim=True)
 
-        ty, tx, ok = bary(res.g)
-        if debias:
-            self_res = _solve(a, a, epsilon, **kw)
-            y0, x0, ok0 = bary(self_res.g)
-            ok = ok & ok0
-            err = torch.maximum(res.marginal_error, self_res.marginal_error)
-            its = _larger(res.iterations, self_res.iterations)
-            cost_aa = self_res.cost
-        else:
-            y0 = torch.arange(Ny, dtype=dtype, device=device)[:, None] \
-                .expand(Ny, Nx)
-            x0 = torch.arange(Nx, dtype=dtype, device=device)[None, :] \
-                .expand(Ny, Nx)
-            err, its = res.marginal_error, res.iterations
-            cost_aa = torch.full(a.shape[:-2], float("nan"), dtype=dtype,
-                                 device=device)
-        support = (an > support_floor * torch.amax(
-            an, dim=(-2, -1), keepdim=True)) & ok
-        u = torch.where(support, tx - x0, 0.0)
-        v = torch.where(support, ty - y0, 0.0)
+    def bary(g):
+        if stabilizer == "exact":
+            # well-defined for every row (the nearest mass dominates)
+            _, ty, tx, _ = _exact_stats(g, eps, want_means=True)
+            return ty, tx
+        den, (numY, numX) = _plan_row_stats(g, eps, Ky, Kx, pairs, tiny)
+        safe = torch.maximum(den, tiny)
+        ty, tx = numY / safe, numX / safe
+        # den underflow: the ratio there is denormal noise up to inf.  The
+        # two-stage shifts hold the plan's rows in a narrower window than
+        # its marginals (1056 pixels of a 320x240 lum pair at eps 100
+        # whose marginals verify within 1e-4), so such rows of the support
+        # take the exact statistics of the same potential
+        ok = den > _den_floor(dtype, device)
+        if bool(torch.any(support & ~ok)):
+            _, ety, etx, _ = _exact_stats(g, eps, want_means=True)
+            ty, tx = torch.where(ok, ty, ety), torch.where(ok, tx, etx)
+        return ty, tx
+
+    ty, tx = bary(res.g)
+    if self_res is not None:
+        y0, x0 = bary(self_res.g)
+        err = torch.maximum(res.marginal_error, self_res.marginal_error)
+        its = _larger(res.iterations, self_res.iterations)
+        cost_aa = self_res.cost
+    else:
+        y0 = torch.arange(Ny, dtype=dtype, device=device)[:, None] \
+            .expand(Ny, Nx)
+        x0 = torch.arange(Nx, dtype=dtype, device=device)[None, :] \
+            .expand(Ny, Nx)
+        err, its = res.marginal_error, res.iterations
+        cost_aa = torch.full(a.shape[:-2], float("nan"), dtype=dtype,
+                             device=device)
+    u = torch.where(support, tx - x0, 0.0)
+    v = torch.where(support, ty - y0, 0.0)
     return FlowResult(u=u, v=v, marginal_error=err, iterations=its,
                       cost_ab=res.cost, cost_aa=cost_aa)
+
+
+def solve_fields(a: torch.Tensor, b: torch.Tensor, epsilon, *,
+                 max_iter: int, tol, theta: float = 1.0,
+                 stabilizer: str = "auto",
+                 loop: str = "auto") -> FieldsResult:
+    """One pair's (u, v, m) as the CLI writes them (``--algo=sinkhorn``):
+    the annealed, debiased :func:`flow` of ``a`` to ``b`` and m =
+    -div(u, v) with the 'D' boundary, the convention of the dynamic
+    extraction.
+
+    ``stabilizer``: "matmul" or "exact" pin the softmin; "auto" solves
+    with the matmul softmin and, where the verified marginal error of the
+    a->b or a->a solve is not within ``tol`` (a NaN error included),
+    solves both again with the exactly-stabilized softmin.  The flow is
+    extracted once, from the solves that give the answer.
+
+    Span ``sinkhorn.solve`` around the whole; inside it the solves'
+    ``sinkhorn.loop`` (one a stage) and ``sinkhorn.verify`` spans, and
+    ``sinkhorn.extract`` (barycentric maps, support, m).  Counter
+    ``sinkhorn.escalations``: pairs that ``auto`` solved again."""
+    if stabilizer not in ("auto", "matmul", "exact"):
+        raise ValueError(f"unknown stabilizer {stabilizer!r} "
+                         "(expected 'auto', 'matmul' or 'exact')")
+    stab = "exact" if stabilizer == "exact" else "matmul"
+    kw = dict(max_iter=max_iter, tol=tol, theta=theta, loop=loop)
+    with trace.annotate("sinkhorn.solve"), _f32_matmul(a.device):
+        res, self_res = _flow_solves(a, b, epsilon, anneal=True,
+                                     debias=True, stabilizer=stab, **kw)
+        me_matmul = None
+        err = torch.maximum(res.marginal_error, self_res.marginal_error)
+        if stabilizer == "auto" and not bool(err <= tol):
+            me_matmul = float(err)
+            trace.count("sinkhorn.escalations")
+            stab = "exact"
+            res, self_res = _flow_solves(a, b, epsilon, anneal=True,
+                                         debias=True, stabilizer=stab, **kw)
+        with trace.annotate("sinkhorn.extract"):
+            fl = _flow_extract(a, res, self_res, epsilon, stabilizer=stab,
+                               support_floor=1e-3)
+            m = -operators.div2d(fl.u, fl.v, bc="D")
+    return FieldsResult(u=fl.u, v=fl.v, m=m, flow=fl, stabilizer=stab,
+                        marginal_error_matmul=me_matmul,
+                        iterations_ab=res.iterations,
+                        iterations_aa=self_res.iterations)
 
 
 def sinkhorn_divergence(a: torch.Tensor, b: torch.Tensor, epsilon=4.0,

@@ -34,11 +34,14 @@ The solvers open these spans (at layer boundaries, never inside a block
 the device loop captures, which would run once at capture):
 ``foto.solve`` > ``alg2.loop``, ``foto.extract``; ``wfr.solve`` >
 ``alg2.loop``, ``wfr.extract``; ``gn.solve`` >
-``gn.setup``, ``cg.loop``; ``sweep.batch`` > ``lockstep.loop``,
-``lockstep.extract``; inside the loops ``device_loop.capture``,
-``device_loop.launch`` (a replay) and ``device_loop.flag_read`` (a host
-read of the running flag).  Counter: ``dct.builds`` (a
-``dct.SeparableDCT`` built: host matrices and their upload).
+``gn.setup``, ``cg.loop``; ``sinkhorn.solve`` > ``sinkhorn.loop`` (one a
+stage), ``sinkhorn.verify``, ``sinkhorn.extract``; ``sweep.batch`` >
+``lockstep.loop``, ``lockstep.extract``; inside the loops
+``device_loop.capture``, ``device_loop.launch`` (a replay) and
+``device_loop.flag_read`` (a host read of the running flag).  Counters:
+``dct.builds`` (a ``dct.SeparableDCT`` built: host matrices and their
+upload); ``sinkhorn.iterations``, ``sinkhorn.exact_iterations`` and
+``sinkhorn.escalations`` (``solvers/sinkhorn.py``).
 """
 
 from __future__ import annotations

@@ -483,6 +483,58 @@ def test_sinkhorn_auto_escalates_like_jax_cli(corner_frames, tmp_path,
     assert _aepe(port / "flow.flo", jax / "flow.flo") < 1e-3
 
 
+@pytest.mark.parametrize("frames_name,args", [
+    ("corner_frames", ["--max-it=600", "--sinkhorn-epsilon=4.0"]),
+    ("square_frames", ["--max-it=500", "--sinkhorn-epsilon=4.0"])],
+    ids=["escalating", "matmul"])
+def test_sinkhorn_cli_prints_and_logs_the_two_call_sequence(
+        frames_name, args, request, tmp_path, capsys):
+    """The CLI's Sinkhorn solve (``sinkhorn.solve_fields``) prints the
+    lines and logs the record that the sequence it replaced gave: ``flow``
+    with the matmul softmin, ``flow`` again with the exact one where the
+    marginal error missed tol, m = -div(u, v); its .flo holds that
+    sequence's (u, v) bit for bit."""
+    from ofot_tpu_torch.ops import operators
+    from ofot_tpu_torch.solvers import sinkhorn
+    frames = request.getfixturevalue(frames_name)
+    log = tmp_path / "log.jsonl"
+    assert cli.main(_argv(frames, "--algo=sinkhorn", *args,
+                          f"--out={tmp_path}/flow.flo",
+                          f"--log-jsonl={log}")) == 0
+    out = capsys.readouterr().out.splitlines()
+
+    a, b = (torch.as_tensor(image.open_grayscale(str(frames / n))[0],
+                            dtype=torch.float32) for n in ("f0.pgm", "f1.pgm"))
+    kw = dict(max_iter=int(args[0].split("=")[1]), tol=1e-4, theta=1.0)
+    res = sinkhorn.flow(a, b, 4.0, stabilizer="matmul", **kw)
+    want, stab = [], "matmul"
+    if not bool(res.marginal_error <= 1e-4):
+        want.append(f"  marginal error {float(res.marginal_error):.3g} > "
+                    "tol 0.0001 on the matmul-softmin path — re-solving "
+                    "with the exactly-stabilized softmin")
+        stab, me_matmul = "exact", float(res.marginal_error)
+        res = sinkhorn.flow(a, b, 4.0, stabilizer="exact", **kw)
+    assert (stab == "exact") == (frames_name == "corner_frames")
+    want.append(f"solver: iterations={res.iterations} "
+                f"marginal_error={float(res.marginal_error)} "
+                f"stabilizer={stab}")
+    first = next(i for i, ln in enumerate(out) if ln == want[0])
+    assert out[first:first + len(want)] == want
+
+    rec = _record(log)
+    assert (rec["iterations"], rec["marginal_error"], rec["stabilizer"]) \
+        == (res.iterations, float(res.marginal_error), stab)
+    assert ("marginal_error_matmul" in rec) == (stab == "exact")
+    if stab == "exact":
+        assert rec["marginal_error_matmul"] == me_matmul
+    _, _, u, v = flo.read_flo(str(tmp_path / "flow.flo"))
+    np.testing.assert_array_equal(u.reshape(res.u.shape), res.u.numpy())
+    np.testing.assert_array_equal(v.reshape(res.v.shape), res.v.numpy())
+    m = -operators.div2d(res.u, res.v, bc="D")
+    fields = sinkhorn.solve_fields(a, b, 4.0, **kw)
+    assert torch.equal(fields.m, m)
+
+
 def test_sinkhorn_f32_envelope_warning(square_frames, capsys):
     """The envelope warning fires only when matmul is pinned at float32
     (tests/test_cli.py:85-108)."""

@@ -394,3 +394,42 @@ def test_check_block_reads_once_per_block(monkeypatch):
                        verify=False)
     monkeypatch.undo()
     assert r.iterations == 30 and len(reads) == 2
+
+
+@pytest.mark.parametrize("escalates", [False, True],
+                         ids=["matmul", "escalating"])
+def test_solve_fields_is_the_two_flow_calls_bit_for_bit(escalates):
+    """``solve_fields`` against the sequence the CLI ran before it:
+    ``flow`` with the matmul softmin, again with the exact one where the
+    marginal error is not within tol, and m = -div(u, v) ('D' boundary).
+    The plain pair is tests/test_cli.py's square moved by (4, 4) px on
+    24x24, the escalating one tests/test_sinkhorn.py's exp-window pair (a
+    blob moved corner to corner on 64x64), both at eps 4 in float32."""
+    from ofot_tpu_torch.ops import operators
+    if escalates:
+        a = _t(_blob(64, 64, 8, 8, sigma=3.0), torch.float32)
+        b = _t(_blob(64, 64, 55, 55, sigma=3.0), torch.float32)
+    else:
+        a, b = (_t(x, torch.float32) for x in fixtures.translating_square(24))
+    kw = dict(max_iter=600, tol=1e-4, theta=1.0)
+    res = sinkhorn.flow(a, b, 4.0, stabilizer="matmul", **kw)
+    stab, me = "matmul", None
+    if not bool(res.marginal_error <= 1e-4):
+        stab, me = "exact", float(res.marginal_error)
+        res = sinkhorn.flow(a, b, 4.0, stabilizer="exact", **kw)
+    assert (stab == "exact") == escalates
+    out = sinkhorn.solve_fields(a, b, 4.0, **kw)
+    assert out.stabilizer == stab and out.marginal_error_matmul == me
+    assert torch.equal(out.u, res.u) and torch.equal(out.v, res.v)
+    assert torch.equal(out.m, -operators.div2d(res.u, res.v, bc="D"))
+    for name in ("marginal_error", "cost_ab", "cost_aa"):
+        assert torch.equal(getattr(out.flow, name), getattr(res, name))
+    assert out.flow.iterations == res.iterations == max(
+        out.iterations_ab, out.iterations_aa)
+
+
+def test_solve_fields_rejects_unknown_stabilizer():
+    a, b = (_t(x) for x in _pair())
+    with pytest.raises(ValueError, match="unknown stabilizer"):
+        sinkhorn.solve_fields(a, b, 4.0, max_iter=10, tol=1e-4,
+                              stabilizer="fast")

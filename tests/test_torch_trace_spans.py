@@ -1,8 +1,9 @@
 """The port's spans and counters (``ofot_tpu_torch/utils/trace.py``) on the
 CPU, where ``loop="device"`` runs the device loop's eager form: off by
 default, the tree each solve entry records, the device loop's launch and
-flag-read spans against its replay counter, the ``dct.builds`` counter,
-the bounded ring, and the clock anchors in a profiler's trace."""
+flag-read spans against its replay counter, the ``dct.builds`` and
+``sinkhorn.*`` counters, the bounded ring, and the clock anchors in a
+profiler's trace."""
 
 import json
 from collections import Counter
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from ofot_tpu_torch.parallel import sweep
-from ofot_tpu_torch.solvers import device_loop, foto, gn, wfr
+from ofot_tpu_torch.solvers import device_loop, foto, gn, sinkhorn, wfr
 from ofot_tpu_torch.utils import trace
 
 import fixtures
@@ -56,6 +57,12 @@ def _wfr(loop="device"):
 def _gn(loop="device"):
     a, b = _pair()
     return gn.solve_fields(a, b, loop=loop)
+
+
+def _sinkhorn(loop="device"):
+    a, b = _pair()
+    return sinkhorn.solve_fields(a, b, 4.0, max_iter=300, tol=1e-4,
+                                 loop=loop)
 
 
 def _lockstep():
@@ -131,6 +138,48 @@ def test_wfr_solve_is_a_root_over_its_loop_and_extraction():
     assert loop.end_ns <= extract.start_ns
     assert {s.request for s in rec.spans} == {root.index}
     assert "foto.solve" not in _names(rec)
+
+
+def _sinkhorn_counts():
+    return {k: trace.counts().get(k, 0) for k in (
+        "sinkhorn.iterations", "sinkhorn.exact_iterations",
+        "sinkhorn.escalations")}
+
+
+@pytest.mark.parametrize("loop", ["device", "host"])
+def test_sinkhorn_solve_is_a_root_over_its_loops_verify_and_extraction(
+        loop):
+    """One ``sinkhorn.loop`` a stage (the ladder's three rungs, 100, 25
+    and 6.25 at 18x20, and the final stage, a->b and a->a), a
+    ``sinkhorn.verify`` a final matmul stage, one ``sinkhorn.extract``
+    after them, all children of the root; the iterations counted as events
+    under it, one a stage."""
+    before = _sinkhorn_counts()
+    _sinkhorn(loop)
+    mid = _sinkhorn_counts()
+    assert trace.spans().spans == []
+    assert mid["sinkhorn.iterations"] > before["sinkhorn.iterations"]
+    trace.enable(True)
+    _sinkhorn(loop)
+    after = _sinkhorn_counts()
+    rec = trace.spans()
+    root = _one(rec, "sinkhorn.solve")
+    extract = _one(rec, "sinkhorn.extract")
+    loops = [s for s in rec.spans if s.name == "sinkhorn.loop"]
+    verify = [s for s in rec.spans if s.name == "sinkhorn.verify"]
+    assert root.parent == -1 and len(loops) == 8 and len(verify) == 2
+    for child in (*loops, *verify, extract):
+        assert child.parent == root.index
+        assert root.start_ns <= child.start_ns <= child.end_ns \
+            <= root.end_ns
+    assert max(s.end_ns for s in loops + verify) <= extract.start_ns
+    events = [e for e in rec.events if e.name == "sinkhorn.iterations"]
+    assert len(events) == 8 and {e.request for e in events} == {root.index}
+    assert sum(e.n for e in events) == after["sinkhorn.iterations"] \
+        - mid["sinkhorn.iterations"] == mid["sinkhorn.iterations"] \
+        - before["sinkhorn.iterations"]
+    for name in ("sinkhorn.exact_iterations", "sinkhorn.escalations"):
+        assert after[name] == before[name]
 
 
 @pytest.mark.parametrize("solve", [_foto, _gn], ids=["foto", "gn"])
