@@ -79,7 +79,8 @@ Phases, each printed with its elapsed seconds:
    ``--quiet --log-jsonl``) and again with ``--sinkhorn-stabilizer=exact``;
    each must converge to the tolerance, write a finite 320x240 .flo,
    reduce IE below the identity warp's, log a ``solve`` record with the
-   JAX CLI's Sinkhorn keys and launch no kernel.  Then FOTO ``auto`` with
+   JAX CLI's Sinkhorn keys and launch no kernel but the exact softmin's
+   (at least the verify of both final solves).  Then FOTO ``auto`` with
    ``--max-it`` cut, writing every new output: the 16 density frames and
    the flow visualization as PNG (header and decompressed length checked,
    no Pillow), a profiler trace that names the fused kernel, and a JSONL
@@ -90,7 +91,9 @@ Phases, each printed with its elapsed seconds:
    debiased divergence and the implicit GN gradient w.r.t. alpha, and the
    device color wheel against numpy's; the TF32 settings around a solve;
    profiler windows of a matmul and an exact check block (ms and device
-   ms per Sinkhorn iteration, launches per iteration, idle share);
+   ms per Sinkhorn iteration, launches per iteration, idle share); the
+   exact softmin's kernels at 320x240, one pair and a batch of 8, beside
+   their exponential bound and the plain path;
 15. pipeline: the port's sweep (``cli/pipeline.py``) in process, on
    Middlebury-layout data written here as PNG without Pillow, as
    ``download`` lays it out: 3 middlebury-1 sequences (seeded textured
@@ -264,6 +267,7 @@ from ofot_tpu_torch.ops import kernels
 from ofot_tpu_torch.ops.kernels import _build
 from ofot_tpu_torch.ops.kernels import cg_operator as cgk
 from ofot_tpu_torch.ops.kernels import dct_solve as ds
+from ofot_tpu_torch.ops.kernels import exact_softmin as ek
 from ofot_tpu_torch.ops.kernels import flow_extract as fx
 from ofot_tpu_torch.ops.kernels import loop_mask as lm
 from ofot_tpu_torch.ops.kernels import projection as pk
@@ -1431,13 +1435,21 @@ def reset_counts() -> None:
 # the device loop's own kernels (ops/kernels/loop_mask.py): one launch
 # each an iteration slot of every while loop's block, whatever the solver
 LOOP_MASK = ("select_scalars", "latch_fields")
+# the exact softmin's kernels (ops/kernels/exact_softmin.py): Sinkhorn's
+# verify, the exact stabilizer's iterations, costs and flows
+SOFTMIN = ("exact_softmin", "exact_stats")
 
 
-def check_launches(label, launches, expect, loops=None, extractions=0):
+def check_launches(label, launches, expect, loops=None, extractions=0,
+                   softmins=None):
     """``expect`` gives, per kernel, the launches of the host loop: the
     iterations (or CG steps) that launch it once each; the flow
     extraction's kernels launch ``fx.LAUNCHES_A_CALL`` times for each of
     ``extractions`` calls (one a FOTO or WFR pair, one a lockstep batch);
+    a run that solved Sinkhorn (``softmins``: the least number of calls of
+    the exact softmin it makes, e.g. a verify's two) launches the exact
+    softmin's kernels in whole calls of ``ek.LAUNCHES_A_CALL``, how many
+    following its stages, blocks and escalations;
     every other kernel must launch 0 times.  With ``loops`` (the device loop's statistics of
     the run), a kernel that captured graphs launched is held to the replay
     relation instead: launches = warm-up launches + replayed launches,
@@ -1451,6 +1463,14 @@ def check_launches(label, launches, expect, loops=None, extractions=0):
     want.update(expect, flow_extract=fx.LAUNCHES_A_CALL * extractions)
     replayed = {} if loops is None else loops.graph_launches
     bad = []
+    if softmins is not None:
+        for k in SOFTMIN:
+            del want[k]
+            if launches[k] % ek.LAUNCHES_A_CALL:
+                bad.append(f"{k}: {launches[k]} launches, not whole calls")
+        if launches["exact_softmin"] < softmins * ek.LAUNCHES_A_CALL:
+            bad.append(f"exact_softmin: {launches['exact_softmin']} "
+                       f"launches, fewer than {softmins} calls")
     if loops is not None and replayed.get("latch_fields", 0) \
             != loops.latch_slots:
         bad.append(f"latch_fields: {replayed.get('latch_fields', 0)} "
@@ -1877,7 +1897,8 @@ def _read_record(path: Path):
 def run_sinkhorn_path(workdir: Path, label: str, extra):
     """Phase 13: Sinkhorn through the CLI as the pipeline runs it (quiet,
     with a JSONL record), the launch counts set to 0 just before and read
-    just after; none may launch."""
+    just after; only the exact softmin may launch, at least at the
+    verify of both final solves."""
     p0, p1 = workdir / "f0.pgm", workdir / "f1.pgm"
     d = workdir / label
     d.mkdir()
@@ -1896,7 +1917,7 @@ def run_sinkhorn_path(workdir: Path, label: str, extra):
          f"W2={rec['wasserstein2']} w2_marginal_error="
          f"{rec['w2_marginal_error']} launches={launches} "
          f"solve_s={solve_s:.4f} IE={ie:.6g} IE_identity={ie_identity:.6g}")
-    check_launches(label, launches, {})
+    check_launches(label, launches, {}, softmins=4)
     if set(rec) != SINKHORN_KEYS:
         raise AssertionError(f"{label}: record keys {sorted(rec)}")
     if not (rec["marginal_error"] <= SINKHORN_TOL
@@ -2111,7 +2132,8 @@ def sinkhorn_tf32_guard(rho):
 
 def profile_sinkhorn(rho):
     """Phase 14: one matmul and one exact check block (25 iterations) on
-    the card, warm by the host clock and in a profiler window."""
+    the card, warm by the host clock and in a profiler window; then the
+    exact softmin's kernels timed (:func:`time_exact_softmin`)."""
     from torch.autograd import DeviceType
     from ofot_tpu_torch.solvers import sinkhorn
     a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
@@ -2138,6 +2160,56 @@ def profile_sinkhorn(rho):
              f"clock, check included), device {busy_ms / 25:.4f} ms per "
              f"iteration, {launches / 25:.1f} launches per iteration")
         out[stab] = dict(ms=ms, device_ms=busy_ms / 25)
+    out["exact_softmin"] = time_exact_softmin(a, warm.f)
+    return out
+
+
+# the exact softmin's kernels timed in phase 14 (the statistics' are
+# exact_stats_*)
+SOFTMIN_KERNELS = ("exact_softmin_x", "exact_softmin_y")
+# exponentials a second: 132 SMs x 16 a clock (the special function units)
+# at the 1.98 GHz of F32_RATE (132 SMs x 128 lanes x 2 x 1.98 GHz)
+EXP_RATE = 132 * 16 * 1.98e9
+
+
+def time_exact_softmin(a, f):
+    """Phase 14: the exact softmin's kernels on a solved potential at the
+    pair's shape, alone and as a batch of LOCKSTEP_B, beside their bound
+    (Ny Nx (Nx + Ny) exponentials a pair over EXP_RATE) and the plain
+    path's time."""
+    from ofot_tpu_torch.solvers import sinkhorn
+    Ny, Nx = a.shape
+    out = {}
+    for batch in (None, LOCKSTEP_B):
+        h = f if batch is None else f.expand(batch, Ny, Nx).contiguous()
+        terms = (batch or 1) * Ny * Nx * (Nx + Ny)
+        enqueue = ek.prepare_softmin(h, SINKHORN_EPS, want_means=False)[0]
+
+        def plain(h=h):
+            return sinkhorn._exact_stats_plain(h, SINKHORN_EPS,
+                                               want_means=False)
+
+        parts = kernel_means_ms(enqueue, SOFTMIN_KERNELS, windows=3)
+        rec = dict(ms=cuda_time_ms(enqueue, samples=10),
+                   device_ms=sum(parts.values()),
+                   plain_ms=cuda_time_ms(plain, samples=3, calls=3),
+                   plain_device_ms=device_time_ms(plain, calls=3,
+                                                  windows=2),
+                   bound_ms=1e3 * terms / EXP_RATE, terms=terms,
+                   **{f"{n}_ms": t for n, t in parts.items()})
+        _log(f"  exact softmin ({Ny}, {Nx}) batch {batch}: kernels "
+             f"{rec['ms']:.4f} ms by events, {rec['device_ms']:.4f} ms "
+             f"device (" + ", ".join(f"{n} {t:.4f}" for n, t in
+                                     parts.items()) + f"); plain "
+             f"{rec['plain_ms']:.4f} ms by events, "
+             f"{rec['plain_device_ms']:.4f} ms device; bound "
+             f"{rec['bound_ms']:.4f} ms ({terms / 1e6:.2f} M exponentials "
+             f"= {batch or 1} x {Ny} x {Nx} x ({Nx} + {Ny}), over 132 SMs "
+             f"x 16 a clock x 1.98 GHz = {EXP_RATE / 1e12:.3f}e12 a "
+             f"second), kernels at "
+             f"{100 * rec['bound_ms'] / rec['device_ms']:.1f}% of it by "
+             "device time")
+        out[batch or 1] = rec
     return out
 
 
@@ -2340,7 +2412,8 @@ def check_sweep(label, seqs, results: Path, manifest, launches, batch,
         extractions = len(group_iterations)
     check_launches(label, launches, pallas_launches(
         alg2_iterations["foto"], alg2_iterations["WFR"]),
-        loops=device_loop.stats, extractions=extractions)
+        loops=device_loop.stats, extractions=extractions,
+        softmins=0 if "sinkhorn" in SWEEP_ALGOS else None)
     return alg2_iterations
 
 
@@ -2748,7 +2821,8 @@ def lockstep_solves():
             cap = kw[f"{'foto' if algo == 'foto' else 'wfr'}_params"][
                 "max_it"]
         else:
-            check_launches(f"lockstep {algo}", launches, {})
+            check_launches(f"lockstep {algo}", launches, {},
+                           softmins=0 if algo == "sinkhorn" else None)
             cap = 5000 if algo == "GN" else kw["sinkhorn_params"]["max_iter"]
         ies, map_ies = _ies(f1s, f2s, u, v, m), _ies(f1s, f2s, um, vm, mm)
         worst_aepe, ie_gaps = 0.0, []
@@ -3497,7 +3571,9 @@ def device_loop_phase(rho):
         (hf, h_its, h_cg), host_s, host_l, _, host_peak = host
         n = max(int(h_cg if unit == "CG steps" else h_its), 1)
         expect = launches_for(kernels_of, n)
-        check_launches(f"host loop {name}", host_l, expect)
+        softmins = 0 if name.startswith("sinkhorn") else None
+        check_launches(f"host loop {name}", host_l, expect,
+                       softmins=softmins)
         for label, run in (("cold", cold), ("warm", warm)):
             (df, d_its, d_cg), _, launches, loops, _ = run
             if not (d_its == h_its and torch.equal(torch.as_tensor(d_cg),
@@ -3508,7 +3584,7 @@ def device_loop_phase(rho):
                     f"against the host loop's {h_its}, or fields not "
                     "bitwise equal")
             check_launches(f"device loop {name} ({label})", launches, expect,
-                           loops=loops)
+                           loops=loops, softmins=softmins)
         _, busy_ms, wall_ms = profile_window(
             f"device loop {name}", lambda k: fn("device"), n, top=5,
             unit=unit)
@@ -3568,6 +3644,8 @@ EXAMPLES = ("quickstart", "unbalanced_flow", "wasserstein",
 # the flow extractions of each example's card run: quickstart's FOTO solve,
 # unbalanced_flow's FOTO and WFR solves; the others extract none
 EXAMPLE_EXTRACTIONS = {"quickstart": 1, "unbalanced_flow": 2}
+# the runs of phase 20 that solve Sinkhorn (the exact softmin may launch)
+SINKHORN_RUNS = ("wasserstein", "differentiable_ot", "w2_gradient_flow")
 # card against CPU, per returned number: a relative tolerance, or
 # ("count", n) for a count within n; the CPU tests' bounds
 # (tests/test_torch_examples.py): 1e-3, WFR 2%, the float32 Sinkhorn
@@ -3763,7 +3841,8 @@ def examples_phase(workdir: Path):
         expect = (pallas_launches(0, res["wfr_iterations"])
                   if name == "unbalanced_flow" else {})
         check_launches(f"example {name}", launches, expect, loops=loops,
-                       extractions=EXAMPLE_EXTRACTIONS.get(name, 0))
+                       extractions=EXAMPLE_EXTRACTIONS.get(name, 0),
+                       softmins=0 if name in SINKHORN_RUNS else None)
         if name == "w2_gradient_flow":
             if not all(b < a for a, b in zip(res, res[1:])):
                 bad.append(f"{name}: S not strictly decreasing: {res}")
@@ -3956,7 +4035,8 @@ def graft_entry_phase():
                   if batch else {})
         check_launches(f"dryrun_multichip(1) {leg}", got, expect,
                        loops=loops, extractions=batch and (
-                           len(its) if leg == "map" else 1))
+                           len(its) if leg == "map" else 1),
+                       softmins=0 if leg == "sinkhorn" else None)
     _log(f"  (b) dryrun_multichip(1) on {CARD}: every leg's assertions "
          f"passed, {wall:.2f} s with the rank's start-up")
     return {leg: res[leg]["launches"]["fused_pointwise"]

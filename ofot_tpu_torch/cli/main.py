@@ -22,9 +22,10 @@ The port runs everything the JAX CLI runs:
     keys), ``--profile`` (a torch.profiler trace), ``--save-flow-viz``
     (the Middlebury color wheel as PNG) beside the reference's.
 
-GN, HS and Sinkhorn run no CUDA kernel, so ``--precision=f64`` works on
-cuda for them.  After the solve the CLI prints a ``solver:`` line and the
-launches of every CUDA kernel on one ``kernel_launches=`` line.
+GN and HS run no CUDA kernel, and Sinkhorn's (the exact softmin) takes
+float64, so ``--precision=f64`` works on cuda for them.  After the solve
+the CLI prints a ``solver:`` line and the launches of every CUDA kernel on
+one ``kernel_launches=`` line.
 
 Usage:  python -m ofot_tpu_torch.cli.main f0.pgm f1.pgm --algo=foto --Nt=16 ...
 """

@@ -23,6 +23,8 @@ KERNELS = {
     "select_scalars": ("loop_mask", "select_launches"),
     "latch_fields": ("loop_mask", "latch_launches"),
     "flow_extract": ("flow_extract", "launches"),
+    "exact_softmin": ("exact_softmin", "launches"),
+    "exact_stats": ("exact_softmin", "stats_launches"),
 }
 
 

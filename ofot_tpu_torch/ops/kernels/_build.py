@@ -166,6 +166,11 @@ def load_library() -> ctypes.CDLL:
             vp, vp, vp, vp,                   # phi u v m
             c_int, c_int, c_int, c_int,       # batch Nt Ny Nx
             c_int, vp],                       # is_double stream
+        "ofot_exact_softmin": [
+            vp, vp, vp,                       # h out scratch
+            c_int, c_int, c_int,              # batch Ny Nx
+            ctypes.c_double, c_int, c_int,    # eps want_means is_double
+            vp],                              # stream
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -15,7 +15,8 @@ The iteration runs in the log domain (potentials f, g) with a two-stage
 stabilized softmin: per-row shifts for the x contraction, per-column
 shifts for the y contraction, both still matmuls.  The ``exact``
 stabilizer (:func:`_exact_stats`) shifts per output entry instead and has
-no float32 envelope, at several times the cost per iteration.
+no float32 envelope, at several times the cost per iteration; on cuda it
+runs as hand-written kernels (``ops/kernels/exact_softmin.py``).
 
 Precision envelope of the matmul softmin (measured by the JAX package,
 tests/test_sinkhorn.py): float64 is exact down to eps = 1; float32 is
@@ -72,6 +73,7 @@ from typing import NamedTuple
 import torch
 
 from ofot_tpu_torch.ops import operators
+from ofot_tpu_torch.ops.kernels import exact_softmin
 from ofot_tpu_torch.solvers import device_loop as _loop
 from ofot_tpu_torch.utils import trace
 
@@ -179,7 +181,22 @@ def _den_floor(dtype, device) -> torch.Tensor:
 def _exact_stats(h: torch.Tensor, eps, *, want_means: bool,
                  chunk: int = 64):
     """Exactly-stabilized softmin (and optional plan-row statistics) with
-    per-output-entry max-plus shifts.
+    per-output-entry max-plus shifts: on a CUDA tensor the kernels of
+    ``ops/kernels/exact_softmin.py`` (``eps`` a Python number, read on the
+    host without touching the card), on the CPU the plain path
+    (:func:`_exact_stats_plain`).  Returns S, or (S, ty, tx, ec), each
+    (Ny, Nx) ((B, Ny, Nx) for a (B, Ny, Nx) batch)."""
+    if h.device.type == "cuda":
+        h = h.contiguous()
+        if want_means:
+            return exact_softmin.stats(h, eps)
+        return exact_softmin.softmin(h, eps)
+    return _exact_stats_plain(h, eps, want_means=want_means, chunk=chunk)
+
+
+def _exact_stats_plain(h: torch.Tensor, eps, *, want_means: bool,
+                       chunk: int = 64):
+    """The plain path of :func:`_exact_stats`, the kernels' reference.
 
     Stage 1 contracts x' with the true shift
     ``M1[y',x] = max_x' (h[y',x'] - (x-x')^2)/eps`` (a 1-D max-plus
@@ -199,7 +216,12 @@ def _exact_stats(h: torch.Tensor, eps, *, want_means: bool,
     """
     dtype, device = h.dtype, h.device
     Ny, Nx = h.shape[-2:]
-    eps = torch.as_tensor(eps, dtype=dtype, device=device)
+    # a tensor, so that on cuda the divisions divide (by a host scalar torch
+    # multiplies by its reciprocal); filled on the device, which a graph
+    # capture allows, where a host copy it refuses
+    eps = (torch.as_tensor(eps, dtype=dtype, device=device)
+           if isinstance(eps, torch.Tensor)
+           else torch.full((), float(eps), dtype=dtype, device=device))
     ixp = torch.arange(Nx, dtype=dtype, device=device)     # source x'
     iyp = torch.arange(Ny, dtype=dtype, device=device)     # source y'
     cs = min(chunk, Nx)
@@ -327,6 +349,7 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
                 init_g, theta, stabilizer, verify, loop) -> SinkhornResult:
     dtype, device = a.dtype, a.device
     eps = torch.as_tensor(epsilon, dtype=dtype, device=device)
+    eps_host = float(epsilon)       # the exact softmin's, read on the host
     Ny, Nx = a.shape[-2:]
     a = a / _grid_sum(a, keepdim=True)
     b = b / _grid_sum(b, keepdim=True)
@@ -349,7 +372,7 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
         return m2 + eps * torch.log(torch.maximum(s2, tiny))
 
     def softmin_exact(h):
-        return _exact_stats(h, eps, want_means=False)
+        return _exact_stats(h, eps_host, want_means=False)
 
     softmin = softmin_matmul if stabilizer == "matmul" else softmin_exact
     th = torch.tensor(theta, dtype=dtype, device=device)
@@ -393,7 +416,7 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
              torch.zeros((), dtype=torch.int64, device=device))
     data = (a, b, la, lb)
     device_form = _loop.resolve(loop, device) == "device"
-    key = ("sinkhorn", stabilizer, float(epsilon), theta, float(tol))
+    key = ("sinkhorn", stabilizer, eps_host, theta, float(tol))
     runner = None
     it = 0
     with trace.annotate("sinkhorn.loop"):
@@ -425,7 +448,7 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
     # row's conditional mean cost (the f potential and every offset of g
     # cancel in the ratio)
     if stabilizer == "exact":
-        _, _, _, E = _exact_stats(g, eps, want_means=True)
+        _, _, _, E = _exact_stats(g, eps_host, want_means=True)
     else:
         i_y = torch.arange(Ny, device=device)
         i_x = torch.arange(Nx, device=device)
@@ -446,9 +469,9 @@ def _solve_impl(a, b, epsilon, *, max_iter, tol, check_every, init_f,
         # marginal_error >> tol
         with trace.annotate("sinkhorn.verify"):
             err_a = _grid_sum(torch.abs(torch.exp(
-                (f + _exact_stats(g, eps, want_means=False)) / eps) - a))
+                (f + _exact_stats(g, eps_host, want_means=False)) / eps) - a))
             err_b = _grid_sum(torch.abs(torch.exp(
-                (g + _exact_stats(f, eps, want_means=False)) / eps) - b))
+                (g + _exact_stats(f, eps_host, want_means=False)) / eps) - b))
             err = torch.maximum(err, torch.maximum(err_a, err_b))
     return SinkhornResult(cost=cost, f=f, g=g, marginal_error=err,
                           iterations=its if pairs else int(its))
@@ -545,6 +568,7 @@ def _flow_extract(a, res, self_res, epsilon, *, stabilizer,
     None: no debiasing, the raw grid subtracted)."""
     dtype, device = a.dtype, a.device
     eps = torch.as_tensor(epsilon, dtype=dtype, device=device)
+    eps_host = float(epsilon)       # the exact softmin's, read on the host
     Ny, Nx = a.shape[-2:]
     an = a / _grid_sum(a, keepdim=True)
     Ky = _gibbs_1d(Ny, eps, dtype, device)
@@ -561,7 +585,7 @@ def _flow_extract(a, res, self_res, epsilon, *, stabilizer,
     def bary(g):
         if stabilizer == "exact":
             # well-defined for every row (the nearest mass dominates)
-            _, ty, tx, _ = _exact_stats(g, eps, want_means=True)
+            _, ty, tx, _ = _exact_stats(g, eps_host, want_means=True)
             return ty, tx
         den, (numY, numX) = _plan_row_stats(g, eps, Ky, Kx, pairs, tiny)
         safe = torch.maximum(den, tiny)
@@ -573,7 +597,7 @@ def _flow_extract(a, res, self_res, epsilon, *, stabilizer,
         # take the exact statistics of the same potential
         ok = den > _den_floor(dtype, device)
         if bool(torch.any(support & ~ok)):
-            _, ety, etx, _ = _exact_stats(g, eps, want_means=True)
+            _, ety, etx, _ = _exact_stats(g, eps_host, want_means=True)
             ty, tx = torch.where(ok, ty, ety), torch.where(ok, tx, etx)
         return ty, tx
 

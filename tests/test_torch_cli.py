@@ -125,7 +125,7 @@ def test_cli_writes_all_foto_artifacts(frames, tmp_path, capsys):
                            "cg_operator_blocked", "cg_operator_tile",
                            "stencil_grad_st", "stencil_stepA_rhs",
                            "select_scalars", "latch_fields",
-                           "flow_extract"}
+                           "flow_extract", "exact_softmin", "exact_stats"}
     assert set(counts.values()) == {"0"} and "iterations=5" in out
 
 

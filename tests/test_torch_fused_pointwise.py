@@ -132,9 +132,9 @@ def test_build_command_is_plain_nvcc_for_sm90a():
                                      "arch=compute_90a,code=sm_90a")
     assert "-shared" in _build.NVCC_FLAGS
     assert [s.name for s in _build.sources()] == [
-        "cg_operator.cu", "dct_solve.cu", "flow_extract.cu",
-        "fused_pointwise.cu", "loop_mask.cu", "projection.cu",
-        "stencil_st.cu"]
+        "cg_operator.cu", "dct_solve.cu", "exact_softmin.cu",
+        "flow_extract.cu", "fused_pointwise.cu", "loop_mask.cu",
+        "projection.cu", "stencil_st.cu"]
     assert [h.name for h in _build.headers()] == ["cg_operator.cuh",
                                                   "paraboloid.cuh"]
     assert _build.BUILD_DIR.name == "_build"

@@ -54,6 +54,15 @@ leave the grid) and on potentials solved from the benchmark's pools; a
 batch of 8 is one call, bitwise its 8 single calls; every call launches
 ``LAUNCHES_A_CALL`` kernels, and a FOTO solve's extraction runs no
 ``index``, ``trunc`` or ``clamp`` op.
+
+The exact softmin's kernels (``ops/kernels/exact_softmin.py``) agree with
+the plain path to the tolerances stated above their tests (float32 and
+float64; 240x320, 320x240 and 194x292; a potential past the matmul
+softmin's exp window); a batch of 3 is one call, bitwise its single calls;
+an exact solve on the device loop launches them inside its graphs the
+number of times its blocks imply, bitwise its host loop; and an escalated
+pair of the benchmark's pool solved on them is as close to float64 as on
+the plain path.
 """
 
 import functools
@@ -97,16 +106,29 @@ def _assert_loop_mask_relation(launches):
     assert s.graph_launches.get("latch_fields", 0) == s.latch_slots
 
 
-def _assert_launch_relation(launches, expect, extractions=0):
+# the exact softmin's kernels (ops/kernels/exact_softmin.py): a Sinkhorn
+# solve launches them at its verify, and at every iteration of the exact
+# stabilizer, so their count follows the stages and blocks a solve ran
+SOFTMIN = ("exact_softmin", "exact_stats")
+
+
+def _assert_launch_relation(launches, expect, extractions=0,
+                            softmins=False):
     """The device loop's launch relation for each kernel of ``expect``
     (kernel -> the iterations that launch it once each) and for its own
     mask kernels, the flow extraction's kernels launched by
-    ``extractions`` calls (one a pair, or one a lockstep batch), and no
-    launch of any other kernel."""
+    ``extractions`` calls (one a pair, or one a lockstep batch), with
+    ``softmins`` (a run that solved Sinkhorn) whole calls of the exact
+    softmin, at least its verify's, and no launch of any other kernel."""
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
     from ofot_tpu_torch.ops.kernels import flow_extract as fk
     from ofot_tpu_torch.solvers import device_loop
     s = device_loop.stats
     assert launches["flow_extract"] == fk.LAUNCHES_A_CALL * extractions
+    if softmins:
+        assert launches["exact_softmin"] >= 2 * ek.LAUNCHES_A_CALL
+        for kernel in SOFTMIN:
+            assert launches[kernel] % ek.LAUNCHES_A_CALL == 0, kernel
     for kernel, iterations in expect.items():
         replayed = s.graph_launches.get(kernel, 0)
         assert launches[kernel] == s.eager_launches.get(kernel, 0) \
@@ -116,7 +138,8 @@ def _assert_launch_relation(launches, expect, extractions=0):
             kernel, 0), kernel
     _assert_loop_mask_relation(launches)
     assert sum(launches.values()) == sum(
-        launches[k] for k in {*expect, *LOOP_MASK, "flow_extract"})
+        launches[k] for k in {*expect, *LOOP_MASK, "flow_extract",
+                              *(SOFTMIN if softmins else ())})
 
 
 def _pallas_launches(foto_iterations, wfr_iterations=0):
@@ -675,7 +698,7 @@ def test_pipeline_run_on_card(cuda_device, tmp_path):
         foto_its += row["foto"]["iterations"]
         wfr_its += row["WFR"]["iterations"]
     _assert_launch_relation(launches, _pallas_launches(foto_its, wfr_its),
-                            extractions=4)
+                            extractions=4, softmins=True)
 
 
 @pytest.mark.cuda
@@ -689,13 +712,14 @@ def test_sinkhorn_float64_rescue_runs_on_card(cuda_device, tmp_path,
     from ofot_tpu_torch.solvers import sinkhorn
     from ofot_tpu_torch.utils import image
 
-    seen, real = [], sinkhorn.flow
+    seen, real = [], sinkhorn.solve_fields
 
     def spy(a, b, *args, **kw):
         seen.append((a.device.type, a.dtype))
         return real(a, b, *args, **kw)
 
-    monkeypatch.setattr(sinkhorn, "flow", spy)
+    # the CLI's one Sinkhorn solve
+    monkeypatch.setattr(sinkhorn, "solve_fields", spy)
     f1s, f2s = _blob_pairs(1, 48, 64)
     d = tmp_path / "data" / "middlebury-1" / "eval-data-gray" / "s0"
     d.mkdir(parents=True)
@@ -1363,3 +1387,200 @@ def test_flow_extract_kernel_rejects_bad_operands_on_card(cuda_device):
     want = flow_extract.flow_from_potential_reference(t.contiguous())
     assert all(map(_same_bits, got, want))
     assert _flow_launches() == fk.LAUNCHES_A_CALL
+
+
+# ------------------------------------------------ the exact softmin kernels
+#
+# The kernels (ops/kernels/exact_softmin.py) against the plain path
+# (solvers/sinkhorn._exact_stats_plain) on the card, in the working dtype.
+# Tolerances, relative to the plain output's largest magnitude: float32
+# 2e-6 for S and 1e-5 for E[y'], E[x'], E[C]; float64 1e-13 and 1e-12.
+# The two form every term and maximum alike but sum the terms in other
+# orders (four running partial sums of up to Nx or Ny terms against torch's
+# reductions) and divide the means' sums by the denominator after the sum,
+# not term by term: each sum differs by a few ulps, S (eps times a
+# logarithm of up to ~300 nats for the wide potential) by a few ulps of
+# max|S|, and the means by their ulps times the few pixels over which a
+# plan row spreads.  The emulated arithmetic read 3e-7 (float32) and 6e-16
+# (float64) on small fields.
+
+SOFTMIN_RTOL = {torch.float32: (2e-6, 1e-5), torch.float64: (1e-13, 1e-12)}
+
+
+def _softmin_potential(shape, dtype, nats, device, seed=3):
+    """eps times a smooth field spanning ``nats`` nats at eps 100, as a
+    Sinkhorn potential (B, Ny, Nx) or (Ny, Nx): 30 nats for a plain
+    pair's, 300 for one past the matmul softmin's float32 exp window
+    (~88 nats)."""
+    ny, nx = shape[-2:]
+    n = shape[0] if len(shape) == 3 else 1
+    tex = np.stack([_texture_pair(ny, nx, seed=seed + i)[0]
+                    for i in range(n)]).reshape(shape)
+    return torch.as_tensor(-100.0 * nats * (tex - 0.1) / 0.8, dtype=dtype,
+                           device=device)
+
+
+def _softmin_gap(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nats", [30, 300], ids=["plain", "wide"])
+@pytest.mark.parametrize("shape", [(240, 320), (320, 240), (194, 292)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_exact_softmin_matches_plain_path_on_card(cuda_device, dtype, shape,
+                                                  nats):
+    """S, and (S, E[y'], E[x'], E[C]), of the kernels against the plain
+    path on the card, at the sweep's frame, its transpose and the eval
+    set's ragged 194x292, for a plain potential and one whose range is
+    past the matmul softmin's exp window; one call of two launches each,
+    and a repeat launch is bitwise the first."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
+    from ofot_tpu_torch.solvers import sinkhorn
+    h = _softmin_potential(shape, dtype, nats, cuda_device)
+    s_tol, m_tol = SOFTMIN_RTOL[dtype]
+    _reset_counts()
+    S = sinkhorn._exact_stats(h, 100.0, want_means=False)
+    got = sinkhorn._exact_stats(h, 100.0, want_means=True)
+    counts = kernels.launch_counts()
+    assert counts["exact_softmin"] == counts["exact_stats"] \
+        == ek.LAUNCHES_A_CALL
+    want = sinkhorn._exact_stats_plain(h, 100.0, want_means=True)
+    assert S.dtype == dtype and S.device.type == "cuda"
+    assert all(bool(torch.isfinite(x).all()) for x in (S, *got))
+    assert torch.equal(S, got[0])
+    assert _softmin_gap(S, want[0]) <= s_tol
+    for g, w in zip(got[1:], want[1:]):
+        assert _softmin_gap(g, w) <= m_tol
+    assert torch.equal(sinkhorn._exact_stats(h, 100.0, want_means=False), S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_exact_softmin_is_its_single_calls_on_card(cuda_device,
+                                                           dtype):
+    """A (3, 240, 320) lockstep batch is one call, and each of its pairs is
+    bitwise the pair's single call, S and the means alike."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
+    from ofot_tpu_torch.solvers import sinkhorn
+    h = _softmin_potential((3, 240, 320), dtype, 30, cuda_device)
+    _reset_counts()
+    S = sinkhorn._exact_stats(h, 100.0, want_means=False)
+    stats = sinkhorn._exact_stats(h, 100.0, want_means=True)
+    assert kernels.launch_counts()["exact_softmin"] == ek.LAUNCHES_A_CALL
+    for i in range(3):
+        assert torch.equal(S[i], sinkhorn._exact_stats(
+            h[i], 100.0, want_means=False))
+        one = sinkhorn._exact_stats(h[i], 100.0, want_means=True)
+        assert all(torch.equal(b[i], o) for b, o in zip(stats, one))
+    want = sinkhorn._exact_stats_plain(h, 100.0, want_means=False)
+    assert _softmin_gap(S, want) <= SOFTMIN_RTOL[dtype][0]
+
+
+@pytest.mark.cuda
+def test_exact_solve_launches_the_softmin_inside_its_graphs_on_card(
+        cuda_device):
+    """An exact solve on the device loop: each block of K iterations is a
+    replay of a graph that launches 2K + 2 softmins (two an iteration, two
+    for the block's marginal check), its capture's warm-up one block of
+    one iteration eagerly (4 softmins), and the cost one call of the
+    statistics; the host loop launches the same softmins eagerly and gives
+    the same bits."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
+    from ofot_tpu_torch.solvers import device_loop, sinkhorn
+    f1, f2 = _texture_pair(48, 64)
+    a, b = (torch.as_tensor(x.astype(np.float32), device=cuda_device)
+            for x in (f1, f2))
+    K, blocks = 5, 3
+    kw = dict(max_iter=K * blocks, check_every=K, tol=0.0,
+              stabilizer="exact")
+    device_loop.clear_cache()
+    _reset_counts()
+    dev = sinkhorn.solve(a, b, 100.0, loop="device", **kw)
+    launches, s = kernels.launch_counts(), device_loop.stats
+    call = ek.LAUNCHES_A_CALL
+    assert s.captures == 1 and s.replays == blocks
+    assert s.eager_launches["exact_softmin"] == 4 * call
+    assert s.graph_launches["exact_softmin"] == (2 * K + 2) * blocks * call
+    assert launches["exact_softmin"] == (4 + (2 * K + 2) * blocks) * call
+    assert launches["exact_stats"] == call
+    _reset_counts()
+    host = sinkhorn.solve(a, b, 100.0, loop="host", **kw)
+    launches = kernels.launch_counts()
+    assert launches["exact_softmin"] == (2 * K + 2) * blocks * call
+    assert launches["exact_stats"] == call
+    assert dev.iterations == host.iterations == K * blocks
+    assert all(map(_same_bits, (dev.f, dev.g, dev.cost),
+                   (host.f, host.g, host.cost)))
+
+
+@pytest.mark.cuda
+def test_exact_solve_keeps_the_plain_paths_accuracy_on_card(cuda_device,
+                                                            monkeypatch):
+    """Pool pair 19 of ``sinkhorn_mb1_320``, a lum pair that the cell
+    solves again with the exact softmin, solved as the cell solves it on the
+    kernels and again with ``_exact_stats`` on its plain path, both float32
+    on the card, each against the float64 reference read at its own counts:
+    the kernels' flow and m gaps within twice the plain path's, plus 1e-4.
+    The plain path reads 1.2e-4 px and 9.1e-5 there.  Sums in another order
+    move a float32 solve by its rounding; a bias moves it further, since the
+    loop's slowest modes gather it over a thousand iterations: stage 1's
+    terms multiplied by a rounded 1 / eps, where the plain path divides,
+    read 4.0e-3 px and 1.7e-3."""
+    import json
+    from pathlib import Path
+
+    from flowbench.algos import sinkhorn as cell
+    from flowbench.traffic import generator
+    from ofot_tpu_torch.solvers import device_loop, sinkhorn
+    root = Path(__file__).resolve().parents[1] / "flowbench"
+    cfg = json.loads((root / "configs" / "sinkhorn_sweep.json").read_text())
+    pair = generator.make_pool(json.loads(
+        (root / "traffic" / "mb1_320.json").read_text()))[19]
+    a, b = (torch.as_tensor(f, device=cuda_device) for f in (pair.f1, pair.f2))
+
+    def gaps():
+        device_loop.clear_cache()         # graphs bake in the softmin
+        res = sinkhorn.solve_fields(a, b, cfg["epsilon"],
+                                    max_iter=cfg["max_it"], tol=cfg["tol"],
+                                    theta=cfg["theta"])
+        assert res.stabilizer == "exact"
+        fields = tuple(t.cpu().numpy() for t in (res.u, res.v, res.m))
+        counters = dict(final_ab=int(res.iterations_ab),
+                        final_aa=int(res.iterations_aa))
+        return cell.check(cfg, [(pair, fields, counters)], cuda_device)
+
+    kernels = gaps()
+    monkeypatch.setattr(sinkhorn, "_exact_stats", sinkhorn._exact_stats_plain)
+    try:
+        plain = gaps()
+    finally:
+        device_loop.clear_cache()
+    for k in ("flow_gap_px", "m_gap"):
+        assert kernels[k] <= 2.0 * plain[k] + 1e-4, (k, kernels, plain)
+
+
+@pytest.mark.cuda
+def test_exact_softmin_kernel_rejects_bad_operands_on_card(cuda_device):
+    """Other dtypes, ranks and a device eps raise before any launch; the
+    dispatcher takes a non-contiguous potential as its contiguous copy."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
+    from ofot_tpu_torch.solvers import sinkhorn
+    h = _softmin_potential((24, 40), torch.float32, 30, cuda_device)
+    _reset_counts()
+    with pytest.raises(TypeError):
+        ek.softmin(h.half(), 100.0)
+    with pytest.raises(ValueError):
+        ek.softmin(h[None, None], 100.0)
+    with pytest.raises(ValueError):
+        ek.stats(h.t(), 100.0)
+    with pytest.raises(ValueError):
+        ek.softmin(h, torch.tensor(100.0, device=cuda_device))
+    assert kernels.launch_counts()["exact_softmin"] == 0
+    assert kernels.launch_counts()["exact_stats"] == 0
+    got = sinkhorn._exact_stats(h.t(), 100.0, want_means=False)
+    assert torch.equal(got, ek.softmin(h.t().contiguous(), 100.0))

@@ -433,3 +433,123 @@ def test_solve_fields_rejects_unknown_stabilizer():
     with pytest.raises(ValueError, match="unknown stabilizer"):
         sinkhorn.solve_fields(a, b, 4.0, max_iter=10, tol=1e-4,
                               stabilizer="fast")
+
+
+# ------------------------------------------------- the exact softmin kernels
+#
+# ``_exact_stats`` sends CUDA tensors to ops/kernels/exact_softmin.py (the
+# kernels run only on the card: tests/test_torch_kernels_cuda.py) and CPU
+# tensors to its plain path.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cpu_exact_softmin_takes_the_plain_path_and_launches_nothing(dtype):
+    """On the CPU ``_exact_stats`` is its plain path bit for bit, for a
+    field and a lockstep batch, and neither it nor an exact solve moves a
+    kernel's launch count."""
+    from ofot_tpu_torch.ops import kernels
+    rng = np.random.default_rng(11)
+    before = kernels.launch_counts()
+    for shape in ((9, 13), (2, 9, 13)):
+        h = _t(rng.standard_normal(shape) * 30, dtype)
+        for means in (False, True):
+            got = sinkhorn._exact_stats(h, 3.0, want_means=means, chunk=4)
+            want = sinkhorn._exact_stats_plain(h, 3.0, want_means=means,
+                                               chunk=4)
+            for g, w in zip(*((got, want) if means else ((got,), (want,)))):
+                assert torch.equal(g, w)
+    a, b = (_t(x, dtype) for x in _pair())
+    r = sinkhorn.solve(a, b, 4.0, max_iter=5, check_every=5,
+                       stabilizer="exact")
+    assert r.iterations == 5
+    assert kernels.launch_counts() == before
+
+
+def _bad_softmin_operand(case):
+    """(h, eps) that the kernels' wrapper must refuse, by case."""
+    h = torch.zeros(6, 8)
+    return {
+        "float16": (h.half(), 1.0),
+        "int64": (h.long(), 1.0),
+        "cpu": (h, 1.0),
+        "meta": (h.to("meta"), 1.0),
+        "one_dim": (torch.zeros(8), 1.0),
+        "four_dim": (torch.zeros(2, 2, 6, 8), 1.0),
+        "empty": (torch.zeros(0, 8), 1.0),
+        "non_contiguous": (torch.zeros(8, 6).t(), 1.0),
+        "eps_tensor": (h, torch.tensor(1.0)),
+        "eps_zero": (h, 0.0),
+        "too_wide_float32": (torch.zeros(1, 14600), 1.0),
+        "too_tall_float64": (torch.zeros(14600, 1, dtype=torch.float64),
+                             1.0),
+    }[case]
+
+
+@pytest.mark.parametrize("means", [False, True], ids=["softmin", "stats"])
+@pytest.mark.parametrize("case", [
+    "float16", "int64", "cpu", "meta", "one_dim", "four_dim", "empty",
+    "non_contiguous", "eps_tensor", "eps_zero", "too_wide_float32",
+    "too_tall_float64"])
+def test_exact_softmin_wrapper_refuses_bad_operands(case, means):
+    """The wrapper refuses a wrong dtype, device, shape, layout or eps
+    (a device tensor's eps would need a host read) before any launch or
+    any build of the kernels."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
+    h, eps = _bad_softmin_operand(case)
+    before = kernels.launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        (ek.stats if means else ek.softmin)(h, eps)
+    assert kernels.launch_counts() == before
+
+
+def test_exact_softmin_entry_point_kernel_names_and_counters():
+    """The C entry the wrapper binds, kernel names that tell the softmin
+    (``exact_softmin_*``, read by the benchmark's
+    ``sinkhorn.exact_softmin_ms``) from the statistics (``exact_stats_*``),
+    and both launch counters in ``KERNELS``."""
+    from ofot_tpu_torch.ops import kernels
+    from ofot_tpu_torch.ops.kernels import _build
+    from ofot_tpu_torch.ops.kernels import exact_softmin as ek
+    src = (_build.SRC_DIR / "exact_softmin.cu").read_text()
+    assert "int ofot_exact_softmin(" in src
+    for kernel in ("exact_softmin_x", "exact_softmin_y", "exact_stats_x",
+                   "exact_stats_y"):
+        assert f"\n{kernel}(" in src
+    for fast in ("__expf", "__logf", "use_fast_math", "__nv_bfloat16",
+                 "wgmma", "mma.sync"):
+        assert fast not in src
+    assert kernels.KERNELS["exact_softmin"] == ("exact_softmin", "launches")
+    assert kernels.KERNELS["exact_stats"] == ("exact_softmin",
+                                              "stats_launches")
+    assert ek.LAUNCHES_A_CALL == 2
+
+
+def test_exact_softmin_ms_reads_the_softmin_kernels_alone():
+    """``flowbench/metrics/sinkhorn.exact_softmin_ms.py``: per kernel of the
+    softmin its seconds over its records, summed (ms); the statistics'
+    kernels and every other kernel left out; None untraced or with no
+    softmin kernel recorded."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "flowbench" / "metrics"
+            / "sinkhorn.exact_softmin_ms.py")
+    spec = importlib.util.spec_from_file_location("exact_softmin_ms", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    ns = "void (anonymous namespace)::"
+    kernels = {
+        f"{ns}exact_softmin_x<float>(float const*, float*, int, int, "
+        "float)": [4, 4 * 30e-6],
+        f"{ns}exact_softmin_y<float>(float const*, float*, int, int, "
+        "float)": [3, 3 * 20e-6],
+        f"{ns}exact_stats_x<float>(float const*)": [2, 2 * 90e-6],
+        "void at::native::elementwise_kernel<128, 2>": [10, 1.0],
+    }
+    rec = {"profile": {"kernels": kernels}}
+    assert reader.read(rec) == pytest.approx(0.05)
+    assert reader.read({"profile": None}) is None
+    del kernels[f"{ns}exact_softmin_x<float>(float const*, float*, int, "
+                "int, float)"]
+    del kernels[f"{ns}exact_softmin_y<float>(float const*, float*, int, "
+                "int, float)"]
+    assert reader.read(rec) is None
